@@ -1,0 +1,130 @@
+"""The port's main path end to end on the CPU: sample1 odometry with the
+bilateral filter on, against the JAX package, its golden trajectory and the
+reference accuracy bound; the ``align3d_torch`` command line; and that the
+port never imports JAX."""
+
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from align3d_tpu.odometry import run_odometry as jax_run_odometry
+from align3d_tpu.ops.bilateral import BilateralFilter as JaxBilateralFilter
+from align3d_tpu.range_image import RangeImageBuilder as JaxRangeImageBuilder
+
+from align3d_torch import cli
+from align3d_torch.convert import transform_from_numpy
+from align3d_torch.io.datasets import SlamTbDataset
+from align3d_torch.metrics import TransformMetrics
+from align3d_torch.odometry import run_odometry
+from align3d_torch.ops.bilateral import BilateralFilter
+from align3d_torch.range_image import RangeImageBuilder
+from align3d_torch.se3 import Transform
+from align3d_torch.trajectory import Trajectory
+
+ROOT = Path(__file__).resolve().parent.parent
+SAMPLE1 = ROOT / "tests" / "data" / "rgbd" / "sample1"
+GOLDEN = ROOT / "tests" / "data" / "golden" / "sample1_bilateral_10.tum"
+FRAMES = 3
+# The bound of tests/test_odometry_accuracy.py:27-34.
+ANGLE_BOUND_DEG, TRANS_BOUND = 0.5, 0.01
+
+
+def _port_run(frames):
+    builder = RangeImageBuilder(bilateral_filter=BilateralFilter())
+    return run_odometry(SlamTbDataset.load(str(SAMPLE1)), "cpu", range_builder=builder, max_frames=frames)
+
+
+def _pose_diff(a: Transform, b: Transform):
+    m = TransformMetrics.new(a, b)
+    return m.angle.numpy(), m.translation.numpy()
+
+
+def _assert_bounds(metrics):
+    assert math.degrees(float(metrics.angle)) < ANGLE_BOUND_DEG
+    assert float(metrics.translation) < TRANS_BOUND
+
+
+@pytest.fixture(scope="module")
+def port_result():
+    return _port_run(FRAMES)
+
+
+def test_odometry_matches_jax(port_result, sample1_dataset):
+    builder = JaxRangeImageBuilder(bilateral_filter=JaxBilateralFilter())
+    ref = jax_run_odometry(sample1_dataset, range_builder=builder, max_frames=FRAMES)
+    ref_poses = transform_from_numpy(
+        np.asarray(ref.trajectory.camera_to_world.rotation), np.asarray(ref.trajectory.camera_to_world.translation)
+    )
+    angle, trans = _pose_diff(ref_poses, port_result.trajectory.camera_to_world)
+    # Each pose within 1e-3 rad / 1e-3 m (measured max 1.0e-6 rad, 1.9e-6 m).
+    assert angle.max() <= 1e-3 and trans.max() <= 1e-3
+    _assert_bounds(port_result.metrics)
+    assert len(port_result.residuals) == FRAMES - 1
+
+
+def test_odometry_prefix_matches_golden(port_result):
+    golden = Trajectory.from_tum(GOLDEN.read_text())
+    assert len(golden) == 10
+    angle, trans = _pose_diff(golden.slice(0, FRAMES).camera_to_world, port_result.trajectory.camera_to_world)
+    # The 3-frame bound, 1e-3 rad / 1e-3 m (measured max 9.8e-7 rad,
+    # 1.9e-6 m; the golden's text keeps 7 decimals).
+    assert angle.max() <= 1e-3 and trans.max() <= 1e-3
+
+
+def test_cli_odometry_on_cpu(port_result, tmp_path, capsys):
+    out = tmp_path / "traj.tum"
+    rc = cli.main(
+        ["odometry", "slamtb", str(SAMPLE1), str(FRAMES), "--device", "cpu", "--quiet", "--save-trajectory", str(out)]
+    )
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert "Mean trajectory error" in printed and "Seconds per frame" in printed
+    saved = Trajectory.from_tum(out.read_text())
+    angle, trans = _pose_diff(saved.camera_to_world, port_result.trajectory.camera_to_world)
+    # The same run, through TUM text with 7 decimals.
+    assert angle.max() <= 1e-6 and trans.max() <= 1e-6
+
+
+def test_cli_requires_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["odometry", "slamtb", str(SAMPLE1), "2", "--quiet"])
+
+
+def test_cli_rejects_unported_formats():
+    with pytest.raises(ValueError, match="ROADMAP"):
+        cli.main(["odometry", "tum", str(SAMPLE1), "--device", "cpu", "--quiet"])
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from align3d_torch.io.datasets import SlamTbDataset\n"
+        "from align3d_torch.odometry import run_odometry\n"
+        "from align3d_torch.ops.bilateral import BilateralFilter\n"
+        "from align3d_torch.range_image import RangeImageBuilder\n"
+        f"ds = SlamTbDataset.load({str(SAMPLE1)!r})\n"
+        f"r = run_odometry(ds, 'cpu', range_builder=RangeImageBuilder(bilateral_filter=BilateralFilter()), "
+        f"max_frames={FRAMES})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'align3d_tpu')))\n"
+        "print('LOADED', bad, len(r.trajectory))\n"
+    )
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"LOADED [] {FRAMES}" in proc.stdout
+
+
+@pytest.mark.slow
+def test_ten_frames_within_bound_and_golden():
+    result = _port_run(10)
+    _assert_bounds(result.metrics)
+    golden = Trajectory.from_tum(GOLDEN.read_text())
+    angle, trans = _pose_diff(golden.camera_to_world, result.trajectory.camera_to_world)
+    # chip_smoke.py's bound on the card (measured on the CPU: 2.8e-6 rad, 8.5e-6 m).
+    assert angle.max() <= 2e-3 and trans.max() <= 2e-3
