@@ -3,8 +3,9 @@
 The module tree mirrors ``align3d_tpu/`` (every module's counterpart sits at
 the same relative path) and the JAX package stays the reference the port is
 tested against. Plain tensor code is PyTorch; the data-dependent hot stages
-of the odometry main path are CUDA C++ kernels written for Hopper
-(``csrc/``), each with a plain-PyTorch twin that runs on the CPU.
+of the odometry main path, the banded NN search of point-cloud ICP and the
+mesh vertex normals are CUDA C++ kernels written for Hopper (``csrc/``),
+each with a plain-PyTorch twin that runs on the CPU.
 
 Conventions:
 
@@ -26,16 +27,19 @@ torch.backends.cudnn.allow_tf32 = False
 
 from align3d_torch.se3 import Transform  # noqa: E402
 from align3d_torch.camera import CameraIntrinsics  # noqa: E402
+from align3d_torch.pointcloud import PointCloud  # noqa: E402
 from align3d_torch.range_image import RangeImage, RangeImageBuilder  # noqa: E402
 from align3d_torch.trajectory import Trajectory, TrajectoryBuilder  # noqa: E402
 from align3d_torch.metrics import TransformMetrics  # noqa: E402
 from align3d_torch.icp.params import IcpParams, MsIcpParams  # noqa: E402
 from align3d_torch.icp.image_icp import ImageIcp  # noqa: E402
 from align3d_torch.icp.multiscale import MultiscaleAlign  # noqa: E402
+from align3d_torch.icp.pcl_icp import Icp  # noqa: E402
 
 __all__ = [
     "Transform",
     "CameraIntrinsics",
+    "PointCloud",
     "RangeImage",
     "RangeImageBuilder",
     "Trajectory",
@@ -45,4 +49,5 @@ __all__ = [
     "MsIcpParams",
     "ImageIcp",
     "MultiscaleAlign",
+    "Icp",
 ]

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per file, all started together, and the objects are linked
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, never at import, into ``build/kernels/`` of the
 checkout, and runs again whenever the sources' hash changes. Set
@@ -19,14 +20,14 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libalign3d_kernels.so"
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,16 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I, _F, _F,  # value grid, image, h, w, gw, gd, color_min, 1/sigma_color
         _P, _P, _P, _P, _P, _P,  # y0, y1, ya, x0, x1, xa
         _P, _P,  # out, stream
+    ],
+    "a3d_nn_banded": [
+        _P, _P, _P,  # planes, queries, band starts
+        _I, _I, _I, _I,  # query blocks, DB tiles, tiles per band, payload
+        _P, _P, _P, _P,  # score, position, payload, stream
+    ],
+    "a3d_mesh_normals": [
+        _P, _P, _I,  # points, faces, faces count
+        _P, _P, _I, _I,  # incidence table, counts, vertices, degree
+        _P, _P, _P,  # face-normal buffer, out, stream
     ],
 }
 
@@ -89,15 +100,27 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text() == want:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for obj, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{stdout}\n{stderr}")
+            elif verbose:
+                print(stderr, end="")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         out = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out)]
-        cmd += [str(p) for p in _sources()]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *(str(obj) for obj, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         os.replace(out, lib_path)
     stamp.write_text(want)
     return lib_path
@@ -121,3 +144,15 @@ def check(status: int, name: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")
+
+
+def check_tensor(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: device, dtype, shape, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

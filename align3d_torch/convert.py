@@ -1,6 +1,6 @@
 """Carry state over from the JAX package, handed over as numpy arrays and
 plain dicts, into the port's types (the parity tests use it to feed the same
-pyramids and parameters to both packages)."""
+pyramids, grids and parameters to both packages)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,9 @@ import torch
 
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp.params import IcpParams, MsIcpParams
+from align3d_torch.io.geometry import Geometry
+from align3d_torch.ops.nn_banded import SortedGrid
+from align3d_torch.ops.voxel_hash import VoxelHashGrid
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
 
@@ -55,3 +58,41 @@ def icp_params_from_dict(params: dict) -> IcpParams:
 def ms_icp_params_from_dicts(levels: list[dict]) -> MsIcpParams:
     """``[dataclasses.asdict(p) for p in jax_ms_params]`` -> MsIcpParams."""
     return MsIcpParams(tuple(icp_params_from_dict(d) for d in levels))
+
+
+def sorted_grid_from_numpy(planes, orig_idx, starts, cell_size, origin, dims, n, device="cpu") -> SortedGrid:
+    """The arrays and static fields of a JAX ``nn_banded.SortedGrid``."""
+    return SortedGrid(
+        planes=_tensor(planes, np.float32, device),
+        orig_idx=_tensor(orig_idx, np.int32, device),
+        starts=_tensor(starts, np.int32, device),
+        cell_size=float(cell_size),
+        origin=tuple(int(v) for v in origin),
+        dims=tuple(int(v) for v in dims),
+        n=int(n),
+    )
+
+
+def voxel_hash_grid_from_numpy(sorted_hash, sorted_points, sorted_indices, cell_size, device="cpu") -> VoxelHashGrid:
+    """The arrays and cell size of a JAX ``voxel_hash.VoxelHashGrid``."""
+    return VoxelHashGrid(
+        sorted_hash=_tensor(sorted_hash, np.int32, device),
+        sorted_points=_tensor(sorted_points, np.float32, device),
+        sorted_indices=_tensor(sorted_indices, np.int32, device),
+        cell_size=float(cell_size),
+    )
+
+
+def geometry_from_numpy(points, normals=None, colors=None, faces=None, texcoords=None) -> Geometry:
+    """The arrays of a JAX ``io.Geometry`` (host arrays on both sides)."""
+
+    def opt(array, dtype):
+        return None if array is None else np.array(array, dtype=dtype)
+
+    return Geometry(
+        points=np.array(points, dtype=np.float32),
+        normals=opt(normals, np.float32),
+        colors=opt(colors, np.uint8),
+        faces=opt(faces, np.int64),
+        texcoords=opt(texcoords, np.float32),
+    )

@@ -137,17 +137,6 @@ def icp_step_plain(rot, trans, points, mask, intensity, geo, taps, h, w, intrins
     return torch.stack(out)
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def icp_step_fused(
     rot: torch.Tensor,  # (B, 3, 3) f32
     trans: torch.Tensor,  # (B, 3) f32
@@ -171,13 +160,13 @@ def icp_step_fused(
     dev = rot.device
     bsz, n = points.shape[0], h * w
     f32, u8 = torch.float32, torch.uint8
-    _check(rot, "rot", (bsz, 3, 3), f32, dev)
-    _check(trans, "trans", (bsz, 3), f32, dev)
-    _check(points, "points", (bsz, n, 3), f32, dev)
-    _check(mask, "mask", (bsz, n), u8, dev)
-    _check(intensity, "intensity", (bsz, n), u8, dev)
-    _check(geo, "geo", (bsz, n, GEO_CHANNELS), f32, dev)
-    _check(taps, "taps", (bsz, n, TAP_CHANNELS), f32, dev)
+    _kernels.check_tensor(rot, "rot", (bsz, 3, 3), f32, dev)
+    _kernels.check_tensor(trans, "trans", (bsz, 3), f32, dev)
+    _kernels.check_tensor(points, "points", (bsz, n, 3), f32, dev)
+    _kernels.check_tensor(mask, "mask", (bsz, n), u8, dev)
+    _kernels.check_tensor(intensity, "intensity", (bsz, n), u8, dev)
+    _kernels.check_tensor(geo, "geo", (bsz, n, GEO_CHANNELS), f32, dev)
+    _kernels.check_tensor(taps, "taps", (bsz, n, TAP_CHANNELS), f32, dev)
 
     if params.huber_delta is not None and params.huber_delta <= 0.0:
         raise ValueError(f"huber_delta must be positive or None, got {params.huber_delta}")

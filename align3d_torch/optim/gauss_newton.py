@@ -35,6 +35,20 @@ class GNSystem:
         count = torch.sum(weights, dim=-1)
         return cls(hessian, gradient, sq, count)
 
+    def add(self, other: "GNSystem") -> "GNSystem":
+        """Merge sub-accumulators (gaussnewton.rs:101-106)."""
+        return GNSystem(
+            self.hessian + other.hessian,
+            self.gradient + other.gradient,
+            self.squared_residual_sum + other.squared_residual_sum,
+            self.count + other.count,
+        )
+
+    def weight(self, w: float) -> "GNSystem":
+        """Scale (gaussnewton.rs:124-128): H by w^2, g and the residual sum
+        by w; the count stays unscaled."""
+        return GNSystem(self.hessian * (w * w), self.gradient * w, self.squared_residual_sum * w, self.count)
+
     def add_weighted(self, other: "GNSystem", w1: float, w2: float) -> "GNSystem":
         """Weighted merge (gaussnewton.rs:115-121): hessians by w^2, gradients
         and residual sums by w, counts unweighted."""

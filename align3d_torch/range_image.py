@@ -141,3 +141,18 @@ def build_pyramid_impl(
     if with_intensity:
         levels = [ri.with_intensity().with_intensity_map() for ri in levels]
     return levels
+
+
+def range_image_to_pointcloud(ri: RangeImage) -> dict:
+    """Flatten a RangeImage into padded point-cloud arrays + mask.
+
+    The reference filters to valid points (structure.rs:375-405); the static
+    shape is kept and the mask returned alongside.
+    """
+    n = ri.height * ri.width
+    out = {"points": ri.points.reshape(n, 3), "mask": ri.mask.reshape(n)}
+    if ri.normals is not None:
+        out["normals"] = ri.normals.reshape(n, 3)
+    if ri.colors is not None:
+        out["colors"] = ri.colors.reshape(n, 3)
+    return out

@@ -199,6 +199,12 @@ class Transform:
             return points @ self.rotation.T + self.translation
         return _mv(self.rotation, points) + self.translation
 
+    def apply_normals(self, normals: torch.Tensor) -> torch.Tensor:
+        """Rotate-only transform for normals (src/transform.rs:151)."""
+        if normals.ndim >= 2 and self.rotation.ndim == 2:
+            return normals @ self.rotation.T
+        return _mv(self.rotation, normals)
+
     # -- conversions / metrics ------------------------------------------
     def to_matrix4(self) -> torch.Tensor:
         batch = self.rotation.shape[:-2]

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from align3d_torch.icp.params import MsIcpParams
+from align3d_torch.io import read_off
 from align3d_torch.io.datasets import SlamTbDataset
 from align3d_torch.ops import bilateral as bil
-from align3d_torch.ops import icp_fused
+from align3d_torch.ops import icp_fused, mesh, nn_banded
 from align3d_torch.ops.target_pack import pack_geometry, pack_intensity_taps
 from align3d_torch.range_image import RangeImageBuilder
 from align3d_torch.se3 import Transform
@@ -25,7 +26,8 @@ pytestmark = pytest.mark.cuda
 
 SIGMA_SPACE = bil.BilateralFilter.sigma_space
 SIGMA_COLOR = bil.BilateralFilter.sigma_color
-RGBD = Path(__file__).resolve().parent / "data" / "rgbd"
+DATA = Path(__file__).resolve().parent / "data"
+RGBD = DATA / "rgbd"
 
 
 @pytest.fixture(scope="module")
@@ -130,3 +132,142 @@ def test_wrappers_reject_bad_inputs(depth_frames):
         bil._splat(depth.float(), 0, (20, 25, 16), SIGMA_SPACE, SIGMA_COLOR)
     with pytest.raises(ValueError):
         bil._slice(torch.zeros(2, 4, 4, 4, device=depth.device), depth.t(), 0, SIGMA_SPACE, SIGMA_COLOR)
+
+
+# -- K4: banded sorted-grid NN ----------------------------------------------------
+
+
+def _grid_and_queries(device, n_db, n_q, cell, seed):
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(0, 1, (n_db, 3)).astype(np.float32)
+    nrm = rng.normal(size=(n_db, 3)).astype(np.float32)
+    q = np.concatenate([db[rng.integers(0, n_db, n_q // 2)] + rng.normal(0, 0.005, (n_q // 2, 3)),
+                        rng.uniform(-0.2, 1.2, (n_q - n_q // 2, 3))]).astype(np.float32)
+    grid = nn_banded.SortedGrid.build(torch.from_numpy(db).to(device), cell, normals=torch.from_numpy(nrm).to(device))
+    return grid, torch.from_numpy(q).to(device)
+
+
+def _search_args(grid, queries, band_width, anchor_min):
+    """K4's arguments as nearest_banded (first cell of a block) or
+    associate_p2p (block minimum) make them."""
+    lin = grid.cell_ids(queries)
+    order = torch.argsort(lin, stable=True)
+    q_s = queries[order]
+    qplanes, bstarts, bw = nn_banded.search_inputs(grid, lin[order], q_s[:, 0], q_s[:, 1], q_s[:, 2],
+                                                   band_width, anchor_min)
+    return grid.planes, qplanes, bstarts, bw
+
+
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("band_width", [128, 512, 1024])
+@pytest.mark.parametrize("n_db, n_q", [(20000, 999), (300, 130)])  # ragged Q; a DB smaller than the band
+def test_nn_banded_kernel_bitwise(cuda_device, n_db, n_q, band_width, payload):
+    grid, queries = _grid_and_queries(cuda_device, n_db, n_q, 0.05, seed=n_db + band_width)
+    args = _search_args(grid, queries, band_width, anchor_min=payload)
+    before = nn_banded.LAUNCHES
+    got = nn_banded.band_search(*args, payload)
+    assert nn_banded.LAUNCHES == before + 1
+    ref = nn_banded.band_search_plain(*args, payload)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (got[2] is None) == (not payload)
+    if payload:
+        assert torch.equal(got[2], ref[2])
+    # No atomics: a rerun is bitwise identical.
+    again = nn_banded.band_search(*args, payload)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_nn_banded_grid_and_search_match_cpu(cuda_device):
+    """The whole search on the card (grid build, sort, K4) equals the CPU
+    path (the same build, the plain twin) bitwise."""
+    grid, queries = _grid_and_queries(cuda_device, 20000, 3000, 0.05, seed=5)
+    cpu_grid, cpu_queries = _grid_and_queries(torch.device("cpu"), 20000, 3000, 0.05, seed=5)
+    for name in ("planes", "orig_idx", "starts"):
+        assert torch.equal(getattr(grid, name).cpu(), getattr(cpu_grid, name)), name
+    idx, sq = nn_banded.nearest_banded(grid, queries)
+    cpu_idx, cpu_sq = nn_banded.nearest_banded(cpu_grid, cpu_queries)
+    assert torch.equal(idx.cpu(), cpu_idx) and torch.equal(sq.cpu(), cpu_sq)
+
+
+def test_nn_banded_rejects_bad_inputs(cuda_device):
+    grid, queries = _grid_and_queries(cuda_device, 2000, 256, 0.05, seed=1)
+    planes, qplanes, bstarts, bw = _search_args(grid, queries, 512, anchor_min=False)
+    bad = [
+        (planes, qplanes.cpu(), bstarts),  # device
+        (planes.double(), qplanes, bstarts),  # dtype
+        (planes, qplanes, bstarts.long()),  # dtype
+        (planes, qplanes[:, :200], bstarts),  # not whole blocks
+        (planes, qplanes.t().contiguous().t(), bstarts),  # not contiguous
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            nn_banded.band_search(*args, bw, False)
+    with pytest.raises(ValueError):
+        nn_banded.band_search(planes, qplanes, bstarts, 100, False)  # not whole tiles
+
+
+# -- K5: mesh vertex normals ---------------------------------------------------------
+
+
+def _grid_mesh(side, freq):
+    ys, xs = np.meshgrid(np.arange(side + 1), np.arange(side + 1), indexing="ij")
+    zs = np.sin(xs * freq) * np.cos(ys * freq)
+    pts = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3).astype(np.float32)
+    faces = []
+    for r in range(side):
+        base, a = r * (side + 1), np.arange(side)
+        faces.append(np.stack([base + a, base + a + 1, base + side + 1 + a], 1))
+        faces.append(np.stack([base + a + 1, base + side + 2 + a, base + side + 1 + a], 1))
+    return pts, np.concatenate(faces).astype(np.int32)
+
+
+def _meshes():
+    rng = np.random.default_rng(1)
+    teapot = read_off(str(DATA / "teapot.off"))
+    ang = np.linspace(0.0, 2 * np.pi, 40, endpoint=False)
+    fan_pts = np.concatenate([[[0.0, 0.0, 0.5]], np.stack([np.cos(ang), np.sin(ang), 0.1 * np.sin(3 * ang)], 1)])
+    i = np.arange(40)
+    return {
+        "teapot": (teapot.points, teapot.faces.astype(np.int32)),
+        "grid320": _grid_mesh(320, 0.1),  # 204,800 faces
+        "random_isolated": (rng.normal(size=(500, 3)).astype(np.float32),
+                            rng.integers(0, 490, (900, 3)).astype(np.int32)),
+        "fan_degree40": (fan_pts.astype(np.float32),
+                         np.stack([np.zeros(40, np.int64), 1 + i, 1 + (i + 1) % 40], 1).astype(np.int32)),
+    }
+
+
+@pytest.mark.parametrize("name", ["teapot", "grid320", "random_isolated", "fan_degree40"])
+def test_mesh_kernel_bitwise(cuda_device, name):
+    pts, faces = _meshes()[name]
+    ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
+    points = torch.from_numpy(pts).to(cuda_device)
+    before = mesh.LAUNCHES
+    got = ev(points)
+    assert mesh.LAUNCHES == before + 1
+    ref = mesh.vertex_normals_plain(points, ev.faces, ev.table, ev.counts)
+    # Bitwise, NaN at the same (isolated) vertices.
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    again = ev(points)
+    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
+    # And the CPU evaluator gives the same, bitwise.
+    cpu = mesh.MeshNormals(faces, pts.shape[0])(torch.from_numpy(pts))
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(cpu))
+    assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(cpu))
+
+
+def test_mesh_kernel_rejects_bad_inputs(cuda_device):
+    pts, faces = _meshes()["teapot"]
+    ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
+    points = torch.from_numpy(pts).to(cuda_device)
+    with pytest.raises(ValueError):
+        mesh.vertex_normals(points.double(), ev.faces, ev.table, ev.counts)  # dtype
+    with pytest.raises(ValueError):
+        mesh.vertex_normals(points, ev.faces.long(), ev.table, ev.counts)  # dtype
+    with pytest.raises(ValueError):
+        mesh.vertex_normals(points.t().contiguous().t(), ev.faces, ev.table, ev.counts)  # contiguity
+    with pytest.raises(ValueError):
+        mesh.vertex_normals(points, ev.faces, ev.table.cpu(), ev.counts)  # device
+    with pytest.raises(ValueError):
+        ev(points.cpu())  # the topology lives on the card

@@ -112,12 +112,23 @@ def test_port_never_imports_jax():
         f"ds = SlamTbDataset.load({str(SAMPLE1)!r})\n"
         f"r = run_odometry(ds, 'cpu', range_builder=RangeImageBuilder(bilateral_filter=BilateralFilter()), "
         f"max_frames={FRAMES})\n"
+        # One point-cloud ICP align on each engine and one MeshNormals call.
+        "import torch\n"
+        "from align3d_torch.icp.pcl_icp import Icp\n"
+        "from align3d_torch.icp.params import IcpParams\n"
+        "from align3d_torch.io import read_ply\n"
+        "from align3d_torch.ops.mesh import MeshNormals\n"
+        f"geo = read_ply({str(ROOT / 'tests' / 'data' / 'teapot.ply')!r})\n"
+        "pts, nrm = torch.from_numpy(geo.points), torch.from_numpy(geo.normals)\n"
+        "for engine in ('banded', 'hash'):\n"
+        "    Icp(IcpParams(max_iterations=2), pts, nrm, nn_engine=engine).align(pts + 0.001, nrm)\n"
+        "vn = MeshNormals(geo.faces, len(geo.points))(pts)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'align3d_tpu')))\n"
-        "print('LOADED', bad, len(r.trajectory))\n"
+        "print('LOADED', bad, len(r.trajectory), tuple(vn.shape))\n"
     )
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert f"LOADED [] {FRAMES}" in proc.stdout
+    assert f"LOADED [] {FRAMES} (480, 3)" in proc.stdout
 
 
 @pytest.mark.slow
