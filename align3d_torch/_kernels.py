@@ -43,12 +43,13 @@ _SIGNATURES = {
         _P, _I, _P, _P,  # partials, blocks per pair, out, stream
     ],
     "a3d_bilateral_splat": [
-        _P, _I, _F, _F,  # image, w, color_min, 1/sigma_color
+        _P, _P, _I, _I, _I, _F,  # images, color_min per frame, batch, h, w, 1/sigma_color
         _P, _P, _I, _P, _P, _I,  # row window idx/wt, taps; col window idx/wt, taps
         _I, _I, _I, _P, _P,  # gh, gw, gd, out, stream
     ],
     "a3d_bilateral_slice": [
-        _P, _P, _I, _I, _I, _I, _F, _F,  # value grid, image, h, w, gw, gd, color_min, 1/sigma_color
+        _P, _P, _P, _I, _I, _I,  # grids, images, color_min per frame, batch, h, w
+        _I, _I, _I, _F,  # gh, gw, gd, 1/sigma_color
         _P, _P, _P, _P, _P, _P,  # y0, y1, ya, x0, x1, xa
         _P, _P,  # out, stream
     ],
@@ -57,6 +58,9 @@ _SIGNATURES = {
         _I, _I, _I, _I,  # query blocks, DB tiles, tiles per band, payload
         _P, _P, _P, _P,  # score, position, payload, stream
     ],
+    "a3d_fma_peak": [_P, _P, _I, _I, _P],  # x, out, n, steps, stream
+    "a3d_gather_lane": [_P, _P, _P, _I, _I, _P],  # x, idx, out, rows, steps, stream
+    "a3d_gather_table": [_P, ctypes.c_uint, _P, _P, _I, _I, _P],  # table, m, x, out, n, steps, stream
     "a3d_mesh_normals": [
         _P, _P, _I,  # points, faces, faces count
         _P, _P, _I, _I,  # incidence table, counts, vertices, degree

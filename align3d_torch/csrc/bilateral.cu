@@ -1,4 +1,9 @@
-// K2 and K3: the data-dependent stages of the bilateral-grid depth filter.
+// K2 and K3: the data-dependent stages of the bilateral-grid depth filter,
+// over a batch of frames (blockIdx.y is the frame; one frame is a batch of
+// one). Each frame has its own image, its own color_min read from a device
+// array, and a grid of the depth gd given at run time, so a new depth span
+// or bucket needs no rebuild. A frame's output does not depend on the batch
+// around it: at B = 65 it is bitwise its B = 1 output.
 //
 // K2 (bilateral_splat) replaces the TPU kernel
 // align3d_tpu/ops/bilateral.py::_splat_kernel. Each grid cell (gy, gx, z)
@@ -14,7 +19,7 @@
 // ~25 image reads per cell, almost all hits in L1/L2 (neighbouring z of one
 // cell read the same pixels), and the 2 x 4 bytes written per cell
 // (12.4 MB at the sample1 grid 2 x 111 x 146 x 96): a few microseconds of
-// HBM time. gd is a runtime argument, so a new depth span needs no rebuild.
+// HBM time per frame.
 //
 // K3 (bilateral_slice) replaces the TPU kernel
 // align3d_tpu/ops/bilateral.py::_slice_kernel. One thread per pixel samples
@@ -42,13 +47,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-bilateral_splat(const int32_t* __restrict__ image, int w, float color_min, float inv_sc,
-                const int32_t* __restrict__ ridx, const float* __restrict__ rwt, int a_taps,
-                const int32_t* __restrict__ cidx, const float* __restrict__ cwt, int b_taps,
-                int gh, int gw, int gd, float* __restrict__ out) {
+bilateral_splat(const int32_t* __restrict__ images, const int32_t* __restrict__ cmin, int h,
+                int w, float inv_sc, const int32_t* __restrict__ ridx,
+                const float* __restrict__ rwt, int a_taps, const int32_t* __restrict__ cidx,
+                const float* __restrict__ cwt, int b_taps, int gh, int gw, int gd,
+                float* __restrict__ grids) {
   const size_t cells = (size_t)gh * gw * gd;
   const size_t cell = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (cell >= cells) return;
+  const int32_t* image = images + (size_t)blockIdx.y * h * w;
+  float* out = grids + (size_t)blockIdx.y * 2 * cells;
+  const float color_min = (float)cmin[blockIdx.y];
   const int z = (int)(cell % gd);
   const int gx = (int)((cell / gd) % gw);
   const int gy = (int)(cell / ((size_t)gd * gw));
@@ -82,15 +91,20 @@ __device__ __forceinline__ float lerp_x(const float* __restrict__ row, int x0, i
 }
 
 __global__ void __launch_bounds__(kThreads)
-bilateral_slice(const float* __restrict__ value, const int32_t* __restrict__ image, int h,
-                int w, int gw, int gd, float color_min, float inv_sc,
-                const int32_t* __restrict__ y0t, const int32_t* __restrict__ y1t,
-                const float* __restrict__ yat, const int32_t* __restrict__ x0t,
-                const int32_t* __restrict__ x1t, const float* __restrict__ xat,
-                float* __restrict__ out) {
+bilateral_slice(const float* __restrict__ grids, const int32_t* __restrict__ images,
+                const int32_t* __restrict__ cmin, int h, int w, int gh, int gw, int gd,
+                float inv_sc, const int32_t* __restrict__ y0t,
+                const int32_t* __restrict__ y1t, const float* __restrict__ yat,
+                const int32_t* __restrict__ x0t, const int32_t* __restrict__ x1t,
+                const float* __restrict__ xat, float* __restrict__ outs) {
   const size_t pix = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (pix >= (size_t)h * w) return;
   const int r = (int)(pix / w), c = (int)(pix % w);
+  const size_t frame = blockIdx.y;
+  const float* value = grids + frame * 2 * gh * gw * gd;  // channel 0 of the frame's grid
+  const int32_t* image = images + frame * h * w;
+  float* out = outs + frame * h * w;
+  const float color_min = (float)cmin[frame];
 
   const float chan = __fadd_rn(
       __fmul_rn(__fsub_rn((float)image[pix], color_min), inv_sc), (float)kColorPad);
@@ -121,30 +135,31 @@ bilateral_slice(const float* __restrict__ value, const int32_t* __restrict__ ima
 
 }  // namespace
 
-extern "C" int a3d_bilateral_splat(const void* image, int w, float color_min, float inv_sc,
-                                   const void* ridx, const void* rwt, int a_taps,
-                                   const void* cidx, const void* cwt, int b_taps, int gh,
-                                   int gw, int gd, void* out, void* stream) {
+extern "C" int a3d_bilateral_splat(const void* images, const void* cmin, int batch, int h,
+                                   int w, float inv_sc, const void* ridx, const void* rwt,
+                                   int a_taps, const void* cidx, const void* cwt, int b_taps,
+                                   int gh, int gw, int gd, void* out, void* stream) {
   const size_t cells = (size_t)gh * gw * gd;
-  const unsigned blocks = (unsigned)((cells + kThreads - 1) / kThreads);
+  const dim3 blocks((unsigned)((cells + kThreads - 1) / kThreads), (unsigned)batch);
   bilateral_splat<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(image), w, color_min, inv_sc,
+      static_cast<const int32_t*>(images), static_cast<const int32_t*>(cmin), h, w, inv_sc,
       static_cast<const int32_t*>(ridx), static_cast<const float*>(rwt), a_taps,
       static_cast<const int32_t*>(cidx), static_cast<const float*>(cwt), b_taps, gh, gw, gd,
       static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
-extern "C" int a3d_bilateral_slice(const void* value, const void* image, int h, int w,
-                                   int gw, int gd, float color_min, float inv_sc,
-                                   const void* y0, const void* y1, const void* ya,
-                                   const void* x0, const void* x1, const void* xa, void* out,
-                                   void* stream) {
+extern "C" int a3d_bilateral_slice(const void* grids, const void* images, const void* cmin,
+                                   int batch, int h, int w, int gh, int gw, int gd,
+                                   float inv_sc, const void* y0, const void* y1,
+                                   const void* ya, const void* x0, const void* x1,
+                                   const void* xa, void* out, void* stream) {
   const size_t pixels = (size_t)h * w;
-  const unsigned blocks = (unsigned)((pixels + kThreads - 1) / kThreads);
+  const dim3 blocks((unsigned)((pixels + kThreads - 1) / kThreads), (unsigned)batch);
   bilateral_slice<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(value), static_cast<const int32_t*>(image), h, w, gw, gd,
-      color_min, inv_sc, static_cast<const int32_t*>(y0), static_cast<const int32_t*>(y1),
+      static_cast<const float*>(grids), static_cast<const int32_t*>(images),
+      static_cast<const int32_t*>(cmin), h, w, gh, gw, gd, inv_sc,
+      static_cast<const int32_t*>(y0), static_cast<const int32_t*>(y1),
       static_cast<const float*>(ya), static_cast<const int32_t*>(x0),
       static_cast<const int32_t*>(x1), static_cast<const float*>(xa),
       static_cast<float*>(out));

@@ -2,9 +2,14 @@
 
 :func:`icp_step`, the plain GN accumulation over all source pixels, lives
 beside its fused CUDA kernel in :mod:`align3d_torch.ops.icp_fused` and is
-re-exported here; :func:`align_impl` runs the GN loop, one fused step per
-iteration, with the solve, the SE(3) update and the best-residual select all
-on the device.
+re-exported here. :func:`align_impl_batched` runs the GN loop of B frame
+pairs at once: per iteration one fused step over all B pairs (one launch of
+K1 on the card), then the batched float64 6x6 solve, the SE(3) update and
+the best-residual select, all on the device, with no wait for it.
+:func:`align_impl` is its batch of one, and :func:`align_batched` its
+counterpart of the JAX package's ``align_batched``. The TPU engine's band
+prediction (``predict_bases_centroid_batched``) has no counterpart: K1
+gathers the target at the exact projected pixel.
 
 Reference semantics kept exactly (``src/icp/image_icp.rs``), as in the JAX
 package:
@@ -44,6 +49,65 @@ def _gn_from_aug16(geo_aug: torch.Tensor, col_aug: torch.Tensor) -> tuple[GNSyst
     return system(geo_aug), system(col_aug)
 
 
+def prepack_batched(
+    source_points: torch.Tensor,  # (B, N, 3)
+    source_mask: torch.Tensor,  # (B, N)
+    source_intensity: torch.Tensor,  # (B, N) u8
+    target_points: torch.Tensor,  # (B, N, 3)
+    target_mask: torch.Tensor,  # (B, N)
+    target_normals: torch.Tensor,  # (B, N, 3)
+    target_intensity_map: torch.Tensor,  # (B, H+2, W+2)
+) -> tuple:
+    """The pose-independent inputs of the fused step for B pairs (the
+    counterpart of ``prepack_v4_batched``): the sources as K1 reads them,
+    with their ``uint8`` masks, and the targets' geometry and intensity-tap
+    packs. Returns ``(points, mask, intensity, geo, taps, h, w)``."""
+    bsz = target_intensity_map.shape[0]
+    h, w = target_intensity_map.shape[-2] - 2, target_intensity_map.shape[-1] - 2
+    geo = pack_geometry(
+        target_points.reshape(bsz, h, w, 3), target_normals.reshape(bsz, h, w, 3), target_mask.reshape(bsz, h, w)
+    )
+    return (
+        source_points.reshape(bsz, h * w, 3).contiguous(),
+        source_mask.reshape(bsz, h * w).to(torch.uint8),
+        source_intensity.reshape(bsz, h * w).contiguous(),
+        geo,
+        pack_intensity_taps(target_intensity_map),
+        h,
+        w,
+    )
+
+
+def align_impl_batched(
+    initial_rotation: torch.Tensor,  # (B, 3, 3)
+    initial_translation: torch.Tensor,  # (B, 3)
+    packed: tuple,  # from prepack_batched
+    intrinsics: CameraIntrinsics,
+    params: IcpParams,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GN loop of B pairs on prepacked inputs (the counterpart of
+    ``align_impl_pallas_v4_batched_packed``); returns (best_R, best_t,
+    best_residual), (B, 3, 3), (B, 3), (B,), on the inputs' device."""
+    points, mask, intensity, geo, taps, h, w = packed
+    weight, color_weight = _f32(params.weight), _f32(params.color_weight)
+    rot, trans = initial_rotation, initial_translation
+    best_res = torch.full(rot.shape[:1], torch.inf, dtype=torch.float32, device=rot.device)
+    best_rot, best_trans = rot, trans
+    for _ in range(params.max_iterations):
+        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, taps, h, w, intrinsics, params)
+        geom, color = _gn_from_aug16(aug[:, 0], aug[:, 1])
+        merged = geom.add_weighted(color, weight, color_weight)
+        residual = merged.mean_squared_residual()
+        new_transform = Transform.exp(merged.solve()) @ Transform(rot, trans)
+
+        better = residual < best_res
+        best_res = torch.where(better, residual, best_res)
+        best_rot = torch.where(better[:, None, None], new_transform.rotation, best_rot)
+        best_trans = torch.where(better[:, None], new_transform.translation, best_trans)
+        rot, trans = new_transform.rotation, new_transform.translation
+    return best_rot, best_trans, best_res
+
+
 def align_impl(
     initial_rotation: torch.Tensor,
     initial_translation: torch.Tensor,
@@ -57,35 +121,34 @@ def align_impl(
     intrinsics: CameraIntrinsics,
     params: IcpParams,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full ICP align; returns (best_R, best_t, best_residual) as tensors on
-    the inputs' device. The loop never waits for the device."""
-    h2, w2 = target_intensity_map.shape
-    h, w = h2 - 2, w2 - 2
-    geo = pack_geometry(target_points.reshape(h, w, 3), target_normals.reshape(h, w, 3), target_mask.reshape(h, w))
-    taps = pack_intensity_taps(target_intensity_map)
-    src_points = source_points.reshape(1, -1, 3).contiguous()
-    src_mask = source_mask.reshape(1, -1).to(torch.uint8)
-    src_intensity = source_intensity.reshape(1, -1).contiguous()
-    weight, color_weight = _f32(params.weight), _f32(params.color_weight)
+    """Full ICP align of one pair: :func:`align_impl_batched` with B = 1."""
+    packed = prepack_batched(
+        source_points[None], source_mask[None], source_intensity[None],
+        target_points[None], target_mask[None], target_normals[None], target_intensity_map[None],
+    )
+    rot, trans, res = align_impl_batched(initial_rotation[None], initial_translation[None], packed, intrinsics, params)
+    return rot[0], trans[0], res[0]
 
-    rot, trans = initial_rotation[None], initial_translation[None]
-    best_res = torch.full((1,), torch.inf, dtype=torch.float32, device=rot.device)
-    best_rot, best_trans = rot, trans
-    for _ in range(params.max_iterations):
-        aug = icp_fused.icp_step_fused(
-            rot, trans, src_points, src_mask, src_intensity, geo[None], taps[None], h, w, intrinsics, params
-        )
-        geom, color = _gn_from_aug16(aug[:, 0], aug[:, 1])
-        merged = geom.add_weighted(color, weight, color_weight)
-        residual = merged.mean_squared_residual()
-        new_transform = Transform.exp(merged.solve()) @ Transform(rot, trans)
 
-        better = residual < best_res
-        best_res = torch.where(better, residual, best_res)
-        best_rot = torch.where(better[:, None, None], new_transform.rotation, best_rot)
-        best_trans = torch.where(better[:, None], new_transform.translation, best_trans)
-        rot, trans = new_transform.rotation, new_transform.translation
-    return best_rot[0], best_trans[0], best_res[0]
+def align_batched(
+    initial: Transform,  # (B,)
+    source_points: torch.Tensor,  # (B, N, 3)
+    source_mask: torch.Tensor,
+    source_intensity: torch.Tensor,
+    target_points: torch.Tensor,  # (B, N, 3)
+    target_mask: torch.Tensor,
+    target_normals: torch.Tensor,
+    target_intensity_map: torch.Tensor,  # (B, H+2, W+2)
+    intrinsics: CameraIntrinsics,
+    params: IcpParams,
+) -> tuple[Transform, torch.Tensor]:
+    """Align B frame pairs at once (the throughput configuration); returns
+    the best poses (B,) and their mean squared residuals (B,)."""
+    packed = prepack_batched(
+        source_points, source_mask, source_intensity, target_points, target_mask, target_normals, target_intensity_map
+    )
+    rot, trans, res = align_impl_batched(initial.rotation, initial.translation, packed, intrinsics, params)
+    return Transform(rot, trans), res
 
 
 class ImageIcp:

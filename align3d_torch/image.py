@@ -81,10 +81,10 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
 
 
 def py_scale_down(color: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Gaussian blur then stride-2 decimation of a (H, W, 3) u8 image."""
-    h2, w2 = color.shape[0] // 2, color.shape[1] // 2
+    """Gaussian blur then stride-2 decimation of (..., H, W, 3) u8 images."""
+    h2, w2 = color.shape[-3] // 2, color.shape[-2] // 2
     lo, _, weights = _blur_offsets_weights(sigma)
     x = color.to(torch.float32)
     # Both passes are evaluated only at the even positions they feed.
-    sampled = _blur_axis(_blur_axis(x, 0, lo, weights, 2), 1, lo, weights, 2)
-    return torch.clamp(sampled[:h2, :w2], 0.0, 255.0).to(torch.uint8)
+    sampled = _blur_axis(_blur_axis(x, -3, lo, weights, 2), -2, lo, weights, 2)
+    return torch.clamp(sampled[..., :h2, :w2, :], 0.0, 255.0).to(torch.uint8)

@@ -15,16 +15,17 @@ BORDER = 2
 
 
 def build_intensity_map(image_u8: torch.Tensor) -> torch.Tensor:
-    """(H, W) u8 luma -> (H+2, W+2) f32 map with the reference border fill."""
-    h, w = image_u8.shape
+    """(..., H, W) u8 luma -> (..., H+2, W+2) f32 map with the reference
+    border fill."""
+    *lead, h, w = image_u8.shape
     core = image_u8.to(torch.float32) / 255.0
-    m = torch.zeros((h + BORDER, w + BORDER), dtype=torch.float32, device=image_u8.device)
-    m[:h, :w] = core
+    m = torch.zeros((*lead, h + BORDER, w + BORDER), dtype=torch.float32, device=image_u8.device)
+    m[..., :h, :w] = core
     # Rows h, h+1 copy row h-1 for columns 0..w-2 only (:61-66).
-    m[h : h + 2, : w - 1] = core[h - 1, : w - 1][None, :]
+    m[..., h : h + 2, : w - 1] = core[..., h - 1 : h, : w - 1]
     # Columns w, w+1 copy column w-1 for rows 0..h-2 only (:68-73).
-    m[: h - 1, w : w + 2] = core[: h - 1, w - 1][:, None]
+    m[..., : h - 1, w : w + 2] = core[..., : h - 1, w - 1 : w]
     # The diagonal corner cells get the last pixel (:75-78).
-    m[h, w] = core[h - 1, w - 1]
-    m[h + 1, w + 1] = core[h - 1, w - 1]
+    m[..., h, w] = core[..., h - 1, w - 1]
+    m[..., h + 1, w + 1] = core[..., h - 1, w - 1]
     return m

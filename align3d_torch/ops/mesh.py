@@ -111,9 +111,10 @@ class MeshNormals:
     """Vertex-normal evaluator for a fixed topology (see the module
     docstring). Same semantics as :func:`compute_vertex_normals`; sums run
     in face order. The incidence table is built on the host and copied to
-    ``device`` once; call it with points on that device."""
+    ``device`` (the card unless the caller asks for the CPU) once; call it
+    with points on that device."""
 
-    def __init__(self, faces, n_vertices: int, device="cpu"):
+    def __init__(self, faces, n_vertices: int, device="cuda"):
         faces_np = np.asarray(faces.cpu() if isinstance(faces, torch.Tensor) else faces, dtype=np.int64)
         faces_np = faces_np.reshape(-1, 3)
         if faces_np.size and (faces_np.min() < 0 or faces_np.max() >= n_vertices):

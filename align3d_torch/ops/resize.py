@@ -13,11 +13,11 @@ import torch
 
 
 def _window_taps(src: torch.Tensor, dst_h: int, dst_w: int) -> list[torch.Tensor]:
-    """The 2x2 window as 4 (dst_h, dst_w, ...) tensors in ((0,0), (0,1),
-    (1,0), (1,1)) order."""
-    h, w = src.shape[0], src.shape[1]
+    """The 2x2 window of (..., H, W) planes as 4 (..., dst_h, dst_w) tensors
+    in ((0,0), (0,1), (1,0), (1,1)) order."""
+    h, w = src.shape[-2:]
     if h == 2 * dst_h and w == 2 * dst_w:
-        return [src[dv::2, du::2] for dv in (0, 1) for du in (0, 1)]
+        return [src[..., dv::2, du::2] for dv in (0, 1) for du in (0, 1)]
     dev = src.device
     src_v = (torch.arange(dst_h, dtype=torch.float32, device=dev) * (h / dst_h)).to(torch.int64)
     src_u = (torch.arange(dst_w, dtype=torch.float32, device=dev) * (w / dst_w)).to(torch.int64)
@@ -26,18 +26,19 @@ def _window_taps(src: torch.Tensor, dst_h: int, dst_w: int) -> list[torch.Tensor
         for du in (0, 1):
             vv = torch.clamp(src_v + dv, 0, h - 1)
             uu = torch.clamp(src_u + du, 0, w - 1)
-            taps.append(src[vv[:, None], uu[None, :]])
+            taps.append(src[..., vv[:, None], uu[None, :]])
     return taps
 
 
 def resize_nearest_to_mean(
     src_values: torch.Tensor, src_mask: torch.Tensor, dst_height: int, dst_width: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(H, W, C) values + (H, W) mask -> ((dst_h, dst_w, C), (dst_h, dst_w) mask)."""
-    chans = src_values.shape[2]
-    vals = _window_taps(src_values.to(torch.float32), dst_height, dst_width)
+    """(..., H, W, C) values + (..., H, W) mask -> ((..., dst_h, dst_w, C),
+    (..., dst_h, dst_w) mask)."""
+    chans = src_values.shape[-1]
+    planes = [_window_taps(src_values[..., c].to(torch.float32), dst_height, dst_width) for c in range(chans)]
     masks = _window_taps(src_mask.to(torch.float32), dst_height, dst_width)
-    vals = [[v[..., c] for c in range(chans)] for v in vals]
+    vals = [[planes[c][t] for c in range(chans)] for t in range(4)]
 
     count = masks[0] + masks[1] + masks[2] + masks[3]
     any_valid = count > 0

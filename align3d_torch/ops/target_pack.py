@@ -22,28 +22,29 @@ TAP_CHANNELS = 12
 
 
 def pack_geometry(points: torch.Tensor, normals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(H, W, 3), (H, W, 3), (H, W) -> (H*W, 8) f32 row table."""
-    h, w = mask.shape
+    """(..., H, W, 3), (..., H, W, 3), (..., H, W) -> (..., H*W, 8) f32 row
+    table."""
+    *lead, h, w = mask.shape
     n = h * w
     return torch.cat(
         [
-            points.reshape(n, 3),
-            normals.reshape(n, 3),
-            mask.reshape(n, 1).to(torch.float32),
-            torch.zeros((n, 1), dtype=torch.float32, device=mask.device),
+            points.reshape(*lead, n, 3),
+            normals.reshape(*lead, n, 3),
+            mask.reshape(*lead, n, 1).to(torch.float32),
+            torch.zeros((*lead, n, 1), dtype=torch.float32, device=mask.device),
         ],
-        dim=1,
+        dim=-1,
     ).contiguous()
 
 
 def pack_intensity_taps(intensity_map: torch.Tensor) -> torch.Tensor:
-    """(H+2, W+2) bordered map -> (H*W, 12) f32; row ``v * W + u`` holds
-    ``I[v+dv, u+du]`` for (dv, du) in row-major {0,1,2}^2."""
-    h2, w2 = intensity_map.shape
+    """(..., H+2, W+2) bordered maps -> (..., H*W, 12) f32; row ``v * W + u``
+    holds ``I[v+dv, u+du]`` for (dv, du) in row-major {0,1,2}^2."""
+    *lead, h2, w2 = intensity_map.shape
     h, w = h2 - 2, w2 - 2
-    taps = [intensity_map[dv : dv + h, du : du + w].reshape(h * w) for dv in range(3) for du in range(3)]
-    zeros = torch.zeros((h * w,), dtype=torch.float32, device=intensity_map.device)
-    return torch.stack(taps + [zeros, zeros, zeros], dim=1).contiguous()
+    taps = [intensity_map[..., dv : dv + h, du : du + w].reshape(*lead, h * w) for dv in range(3) for du in range(3)]
+    zeros = torch.zeros((*lead, h * w), dtype=torch.float32, device=intensity_map.device)
+    return torch.stack(taps + [zeros, zeros, zeros], dim=-1).contiguous()
 
 
 def _lerp2(t00, t01, t10, t11, fu, fv):

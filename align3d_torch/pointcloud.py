@@ -33,8 +33,9 @@ class PointCloud:
         return torch.sum(self.mask.to(torch.int32))
 
     @classmethod
-    def from_geometry(cls, geometry: Geometry, device="cpu") -> "PointCloud":
-        """From an io.Geometry (host arrays; all points valid)."""
+    def from_geometry(cls, geometry: Geometry, device="cuda") -> "PointCloud":
+        """From an io.Geometry (host arrays; all points valid), on ``device``
+        (the card unless the caller asks for the CPU)."""
 
         def opt(array, dtype):
             return None if array is None else torch.from_numpy(np.array(array, dtype=dtype)).to(device)

@@ -23,23 +23,24 @@ from align3d_torch.ops.intensity import build_intensity_map
 
 @dataclasses.dataclass
 class RangeImage:
-    """Grid-structured point cloud; all tensors are (H, W, ...) on one device."""
+    """Grid-structured point cloud; all tensors are (..., H, W, ...) on one
+    device, with the same leading batch axes (none for one frame)."""
 
-    points: torch.Tensor  # (H, W, 3) f32, camera frame
-    mask: torch.Tensor  # (H, W) bool
+    points: torch.Tensor  # (..., H, W, 3) f32, camera frame
+    mask: torch.Tensor  # (..., H, W) bool
     intrinsics: CameraIntrinsics
-    normals: Optional[torch.Tensor] = None  # (H, W, 3) f32
-    colors: Optional[torch.Tensor] = None  # (H, W, 3) u8
-    intensities: Optional[torch.Tensor] = None  # (H, W) u8
-    intensity_map: Optional[torch.Tensor] = None  # (H+2, W+2) f32
+    normals: Optional[torch.Tensor] = None  # (..., H, W, 3) f32
+    colors: Optional[torch.Tensor] = None  # (..., H, W, 3) u8
+    intensities: Optional[torch.Tensor] = None  # (..., H, W) u8
+    intensity_map: Optional[torch.Tensor] = None  # (..., H+2, W+2) f32
 
     @property
     def height(self) -> int:
-        return self.points.shape[0]
+        return self.points.shape[-3]
 
     @property
     def width(self) -> int:
-        return self.points.shape[1]
+        return self.points.shape[-2]
 
     @property
     def device(self) -> torch.device:
@@ -51,11 +52,14 @@ class RangeImage:
         intrinsics: CameraIntrinsics,
         color: torch.Tensor,
         depth: torch.Tensor,
-        depth_scale: float,
+        depth_scale: float | torch.Tensor,
     ) -> "RangeImage":
-        """Backproject an int depth image; zero depth marks invalid pixels,
-        whose points stay (0, 0, 0)."""
+        """Backproject int depth images; zero depth marks invalid pixels,
+        whose points stay (0, 0, 0). ``depth_scale`` is a float or a tensor
+        of the images' leading shape (one scale per frame)."""
         mask = depth > 0
+        if isinstance(depth_scale, torch.Tensor):
+            depth_scale = depth_scale.to(device=depth.device, dtype=torch.float32)[..., None, None]
         z = depth.to(torch.float32) * depth_scale
         points = intrinsics.backproject_grid(z)
         points = torch.where(mask[..., None], points, 0.0)
@@ -95,6 +99,12 @@ class RangeImage:
             out.append(out[-1].scale_down(sigma))
         return out
 
+    def frames(self, index) -> "RangeImage":
+        """The frames ``index`` (an int, a slice or an index tensor) of a
+        batched RangeImage."""
+        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return RangeImage(**{k: v if k == "intrinsics" or v is None else v[index] for k, v in fields.items()})
+
 
 @dataclasses.dataclass(frozen=True)
 class RangeImageBuilder:
@@ -129,11 +139,13 @@ def build_pyramid_impl(
     pyramid_levels: int,
     blur_sigma: float,
     intrinsics: CameraIntrinsics,
-    depth_scale: float,
+    depth_scale: float | torch.Tensor,
     color: torch.Tensor,
     depth: torch.Tensor,
 ) -> list[RangeImage]:
-    """Pyramid construction in the order of ``builder.rs:74-91``."""
+    """Pyramid construction in the order of ``builder.rs:74-91``. ``color``
+    (..., H, W, 3) and ``depth`` (..., H, W) may carry leading frame axes;
+    every level then carries them too (the JAX package's ``vmap``)."""
     first = RangeImage.from_rgbd(intrinsics, color, depth, depth_scale)
     if with_normals:
         first = first.with_normals()

@@ -37,6 +37,14 @@ def _mv(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return (mat @ vec.unsqueeze(-1)).squeeze(-1)
 
 
+def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for (..., 3, 3) by (..., 3, k) as one elementwise product and
+    one sum over its 3 terms, which each output adds up alone, in order. A
+    batched GEMM picks its kernel, and so its rounding, by the batch size;
+    this form gives a pose the same bits in any batch."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
 def quat_to_matrix(quat: torch.Tensor) -> torch.Tensor:
     """(w, x, y, z) quaternion (..., 4) -> rotation (..., 3, 3), normalizing."""
     w, x, y, z = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
@@ -180,10 +188,11 @@ class Transform:
 
     # -- core ops --------------------------------------------------------
     def compose(self, other: "Transform") -> "Transform":
-        """``self @ other`` — ``other`` is applied first."""
+        """``self @ other`` — ``other`` is applied first. Batch-invariant: a
+        pose composed in a batch has the bits it has composed alone."""
         return Transform(
-            self.rotation @ other.rotation,
-            _mv(self.rotation, other.translation) + self.translation,
+            _matmul3(self.rotation, other.rotation),
+            _matmul3(self.rotation, other.translation[..., None])[..., 0] + self.translation,
         )
 
     def __matmul__(self, other: "Transform") -> "Transform":

@@ -85,6 +85,51 @@ class Trajectory:
         return cls.from_list(poses, np.asarray(times, np.float32))
 
 
+def _combine(a: tuple, b: tuple) -> tuple:
+    """``b @ a`` for (rotation, translation) pairs: ``b`` is the later pose."""
+    return b[0] @ a[0], se3._mv(b[0], a[1]) + b[1]
+
+
+def _scan(elems: tuple) -> tuple:
+    """Inclusive prefix composition along axis 0 with the recursion of
+    ``jax.lax.associative_scan``: combine adjacent pairs, scan the pairs,
+    then fill in the even positions, so every product is formed from the
+    same operands in the same order as there."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _scan(_combine(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems)))
+    left = odd if n % 2 else tuple(e[:-1] for e in odd)
+    even = _combine(left, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r]) for e, r in zip(elems, even))
+    out = []
+    for e, o in zip(even, odd):
+        both = torch.empty((n, *e.shape[1:]), dtype=e.dtype, device=e.device)
+        both[0::2], both[1::2] = e, o
+        out.append(both)
+    return tuple(out)
+
+
+def accumulate_scan(relative: Transform, start: Transform | None = None, times=None) -> Trajectory:
+    """Parallel-prefix odometry accumulation (port of the JAX package's
+    ``accumulate_scan``): from relative poses ``T_1..T_N`` (leading axis N),
+    the absolute poses ``P_i = T_i @ ... @ T_1 @ start``, the left fold of
+    :meth:`TrajectoryBuilder.accumulate` in ~2 log2(N) rounds of batched
+    3x3 products. The trajectory includes the start pose: N + 1 entries."""
+    n = relative.rotation.shape[0]
+    device = relative.rotation.device
+    start = start if start is not None else Transform.identity(device=device)
+    rots, trans = _scan((relative.rotation, relative.translation))
+    abs_rot = rots @ start.rotation
+    abs_t = se3._mv(rots, start.translation) + trans
+    camera_to_world = Transform(
+        torch.cat([start.rotation[None], abs_rot]), torch.cat([start.translation[None], abs_t])
+    )
+    if times is None:
+        times = torch.arange(n + 1, dtype=torch.float32, device=device)
+    return Trajectory(camera_to_world, torch.as_tensor(times, dtype=torch.float32).to(device))
+
+
 class TrajectoryBuilder:
     """Odometry accumulator (reference src/trajectory.rs:131-184)."""
 

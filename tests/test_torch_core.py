@@ -76,6 +76,23 @@ def test_se3_compose_inverse_apply_against_jax():
     np.testing.assert_allclose(back.rotation.numpy(), np.asarray(jback.rotation), atol=1e-6)
 
 
+@pytest.mark.parametrize("batch", [1, 5, 64])
+def test_se3_compose_is_batch_invariant(batch):
+    """A pose composed in a batch has the bits it has composed alone, and
+    is the product to float32 rounding (atol 1e-6 against float64)."""
+    rng = np.random.default_rng(batch)
+    a = Transform.exp(torch.from_numpy(rng.normal(size=(batch, 6)).astype(np.float32)))
+    b = Transform.exp(torch.from_numpy(rng.normal(size=(batch, 6)).astype(np.float32)))
+    comp = a @ b
+    for i in range(batch):
+        one = a[i] @ b[i]
+        assert torch.equal(one.rotation, comp.rotation[i]) and torch.equal(one.translation, comp.translation[i])
+    ref_r = a.rotation.double() @ b.rotation.double()
+    ref_t = (a.rotation.double() @ b.translation.double()[..., None])[..., 0] + a.translation.double()
+    np.testing.assert_allclose(comp.rotation.numpy(), ref_r.numpy(), atol=1e-6)
+    np.testing.assert_allclose(comp.translation.numpy(), ref_t.numpy(), atol=1e-6)
+
+
 def test_camera_backproject_and_scale_against_jax():
     rng = np.random.default_rng(4)
     fields = dict(fx=544.4732666015625, fy=544.4732666015625, cx=320.0, cy=240.0, width=64, height=48)

@@ -252,7 +252,7 @@ def test_mesh_kernel_bitwise(cuda_device, name):
     again = ev(points)
     assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
     # And the CPU evaluator gives the same, bitwise.
-    cpu = mesh.MeshNormals(faces, pts.shape[0])(torch.from_numpy(pts))
+    cpu = mesh.MeshNormals(faces, pts.shape[0], device="cpu")(torch.from_numpy(pts))
     assert torch.equal(torch.isnan(got.cpu()), torch.isnan(cpu))
     assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(cpu))
 
@@ -271,3 +271,129 @@ def test_mesh_kernel_rejects_bad_inputs(cuda_device):
         mesh.vertex_normals(points, ev.faces, ev.table.cpu(), ev.counts)  # device
     with pytest.raises(ValueError):
         ev(points.cpu())  # the topology lives on the card
+
+
+# -- the throughput path: K2/K3 over a batch, K1 at batch 64 ------------------------
+
+
+def _series_depths(device, frames=12):
+    from align3d_torch.tools import series
+
+    mixed = series.mixed_frames()
+    pick = list(range(frames // 2)) + list(range(31, 31 + frames // 2))  # sample1 and sample2 frames
+    return torch.from_numpy(mixed.depths[pick].astype(np.int32)).to(device)
+
+
+def test_batched_splat_and_slice_bitwise_against_single_frames(cuda_device):
+    depths = _series_depths(cuda_device)
+    filt = bil.BilateralFilter()
+    cmin, cmax = bil.nonzero_min_max(depths)
+    gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(cmin.tolist(), cmax.tolist()))
+    assert gd > 128
+    gh, gw = bil._grid_dims(*depths.shape[-2:], filt.sigma_space)
+    before = (bil.SPLAT_LAUNCHES, bil.SLICE_LAUNCHES)
+    grids = bil._splat(depths, cmin, (gh, gw, gd), filt.sigma_space, filt.sigma_color)
+    norm = bil._normalize(bil._blur(grids, gd))
+    sliced = bil._slice(norm, depths, cmin, filt.sigma_space, filt.sigma_color)
+    assert (bil.SPLAT_LAUNCHES, bil.SLICE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for b in range(depths.shape[0]):
+        one = bil._splat(depths[b], int(cmin[b]), (gh, gw, gd), filt.sigma_space, filt.sigma_color)
+        assert torch.equal(one, grids[b])
+        assert torch.equal(bil._slice(norm[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space,
+                                      filt.sigma_color), sliced[b])
+    # The batched slice at B >= 3, gd > 128 against its plain twin.
+    ref = bil._slice_plain(norm, depths, cmin, filt.sigma_space, filt.sigma_color)
+    assert float((sliced - ref).abs().max()) <= 2e-3
+
+
+def test_bucketed_filter_bitwise_against_per_frame(cuda_device):
+    depths = _series_depths(cuda_device, 6)
+    filt = bil.BilateralFilter()
+    cmin, cmax = bil.nonzero_min_max(depths)
+    plan = bil.plan_depth_buckets(cmin.cpu().numpy(), cmax.cpu().numpy(), filt.sigma_color)
+    assert len(plan) >= 2
+    out = filt.filter_static_buckets(depths, cmin, plan)
+    for b in range(depths.shape[0]):
+        gd = bil.true_depth(int(cmin[b]), int(cmax[b]), filt.sigma_color)
+        assert torch.equal(filt.filter_static(depths[b], int(cmin[b]), gd, gd), out[b])
+
+
+def test_icp_step_batch64_bitwise_against_single(cuda_device):
+    from align3d_torch.icp.image_icp import prepack_batched
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(64, cuda_device)
+    n = targets.height * targets.width
+    packed = prepack_batched(
+        sources.points.reshape(64, n, 3), sources.mask.reshape(64, n), sources.intensities.reshape(64, n),
+        targets.points.reshape(64, n, 3), targets.mask.reshape(64, n), targets.normals.reshape(64, n, 3),
+        targets.intensity_map,
+    )
+    pose = Transform.exp(torch.tensor([0.004, -0.002, 0.003, 0.002, -0.003, 0.001], device=cuda_device))
+    rot, trans = pose.rotation.expand(64, 3, 3).contiguous(), pose.translation.expand(64, 3).contiguous()
+    params = MsIcpParams.default()[0]
+    batched = icp_fused.icp_step_fused(rot, trans, *packed, targets.intrinsics, params)
+    for b in range(64):
+        one = icp_fused.icp_step_fused(rot[b:b + 1], trans[b:b + 1], *(t[b:b + 1] for t in packed[:5]),
+                                       *packed[5:], targets.intrinsics, params)
+        assert torch.equal(one[0], batched[b]), b
+
+
+# -- P1, P2: the roofline probes ------------------------------------------------------
+
+
+def test_fma_probe_against_twin(cuda_device):
+    from align3d_torch.tools import roofline as rl
+
+    x = torch.rand(132 * 256, device=cuda_device) + 0.5
+    before = rl.FMA_LAUNCHES
+    got = rl.fma_chains(x, 2)
+    assert rl.FMA_LAUNCHES == before + 1
+    # rtol 1e-5: fmaf rounds once where the twin's multiply and add round
+    # twice, over chains of 64.
+    torch.testing.assert_close(got, rl.fma_chains_plain(x, 2), rtol=1e-5, atol=0)
+
+
+def test_gather_probes_bitwise_against_twins(cuda_device):
+    from align3d_torch.tools import roofline as rl
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randint(0, 1000, (257, 128), generator=g, device=cuda_device, dtype=torch.int32)
+    idx = torch.randint(0, 128, (4, 257, 128), generator=g, device=cuda_device, dtype=torch.int32)
+    assert torch.equal(rl.lane_gather(x, idx, 3), rl.lane_gather_plain(x, idx, 3))
+    for m in (4096, 6_144_000):
+        table = torch.randint(-(2**31), 2**31 - 1, (m,), generator=g, device=cuda_device, dtype=torch.int32)
+        xs = torch.randint(0, 1000, (10_001,), generator=g, device=cuda_device, dtype=torch.int32)
+        assert torch.equal(rl.table_gather(table, xs, 2), rl.table_gather_plain(table, xs, 2))
+
+
+def test_compose_bitwise_across_batch_sizes(cuda_device):
+    """``Transform.compose`` on the card gives a pose the same bits at batch
+    1, 64 and 4096 (a batched GEMM would not)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = Transform.exp(torch.randn(4096, 6, generator=g, device=cuda_device))
+    b = Transform.exp(torch.randn(4096, 6, generator=g, device=cuda_device))
+    full = a @ b
+    for n in (1, 64):
+        part = Transform(a.rotation[:n], a.translation[:n]) @ Transform(b.rotation[:n], b.translation[:n])
+        assert torch.equal(part.rotation, full.rotation[:n]) and torch.equal(part.translation, full.translation[:n])
+
+
+def test_align_batched_bitwise_against_single_pairs(cuda_device):
+    """The batched GN loop gives each pair the bits of its own align: K1,
+    the f64 solve, the SE(3) exp and the (batch-invariant) compose."""
+    from align3d_torch.icp.image_icp import align_batched, align_impl
+    from align3d_torch.icp.params import IcpParams
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(6, cuda_device)
+    n = targets.height * targets.width
+    args = (sources.points.reshape(6, n, 3), sources.mask.reshape(6, n), sources.intensities.reshape(6, n),
+            targets.points.reshape(6, n, 3), targets.mask.reshape(6, n), targets.normals.reshape(6, n, 3),
+            targets.intensity_map)
+    params = IcpParams(max_iterations=10)
+    pose, res = align_batched(Transform.identity((6,), device=cuda_device), *args, targets.intrinsics, params)
+    eye, zero = torch.eye(3, device=cuda_device), torch.zeros(3, device=cuda_device)
+    for b in range(6):
+        rot, trans, r = align_impl(eye, zero, *(a[b] for a in args), targets.intrinsics, params)
+        assert torch.equal(rot, pose.rotation[b]) and torch.equal(trans, pose.translation[b]) and torch.equal(r, res[b])

@@ -92,7 +92,7 @@ def test_mesh_normals_match_jax(name):
     pts, faces = CASES[name]()
     ref = np.asarray(jax_mesh.compute_vertex_normals(jnp.asarray(pts), jnp.asarray(faces)))
     gather = np.asarray(jax_mesh.MeshNormals(faces, pts.shape[0])(jnp.asarray(pts), method="gather"))
-    ours = mesh.MeshNormals(faces, pts.shape[0])(torch.from_numpy(pts)).numpy()
+    ours = mesh.MeshNormals(faces, pts.shape[0], device="cpu")(torch.from_numpy(pts)).numpy()
     one_shot = mesh.compute_vertex_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy()
     # NaN exactly at the isolated vertices, in both packages.
     np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
@@ -130,18 +130,18 @@ def test_reference_semantics():
     # ridge, the zero normal of a degenerate face, NaN at isolated vertices.
     pts, faces = CASES["ridge"]()
     fn = mesh.face_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy()
-    vn = mesh.MeshNormals(faces, 4)(torch.from_numpy(pts)).numpy()
+    vn = mesh.MeshNormals(faces, 4, device="cpu")(torch.from_numpy(pts)).numpy()
     np.testing.assert_allclose(vn[0], (fn[0] + fn[1]) / 2.0, atol=1e-6)
     assert abs(np.linalg.norm(vn[0]) - 1.0) > 1e-3
     pts, faces = CASES["degenerate"]()
     assert np.all(mesh.face_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy() == 0.0)
     pts, faces = _random_mesh()
-    assert np.isnan(mesh.MeshNormals(faces, 500)(torch.from_numpy(pts)).numpy()[-10:]).all()
+    assert np.isnan(mesh.MeshNormals(faces, 500, device="cpu")(torch.from_numpy(pts)).numpy()[-10:]).all()
 
 
 def test_mesh_normals_degree_and_table():
     pts, faces = _fan_mesh()
-    ev = mesh.MeshNormals(faces, pts.shape[0])
+    ev = mesh.MeshNormals(faces, pts.shape[0], device="cpu")
     assert ev.degree == 40 and tuple(ev.table.shape) == (41, 40)
     assert int(ev.table[1, 2]) == faces.shape[0]  # a rim vertex has 2 faces; the rest is padding
 
@@ -149,7 +149,20 @@ def test_mesh_normals_degree_and_table():
 def test_mesh_normals_rejects_bad_input():
     pts, faces = CASES["triangle"]()
     with pytest.raises(ValueError, match="face ids"):
-        mesh.MeshNormals(faces, 2)
+        mesh.MeshNormals(faces, 2, device="cpu")
     ev = mesh.MeshNormals(faces, 3, device="meta")
     with pytest.raises(ValueError, match="meta"):
         ev(torch.from_numpy(pts))
+
+
+def test_mesh_normals_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(mesh.MeshNormals).parameters["device"].default == "cuda"
+    faces = np.array([[0, 1, 2]], np.int32)
+    if torch.cuda.is_available():
+        assert mesh.MeshNormals(faces, 3).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            mesh.MeshNormals(faces, 3)

@@ -101,7 +101,30 @@ def test_cli_rejects_unported_formats():
         cli.main(["odometry", "tum", str(SAMPLE1), "--device", "cpu", "--quiet"])
 
 
+FORBIDDEN = ("jax", "jaxlib", "align3d_tpu", "bench", "benches")
+
+
+def _imported_roots(path: Path) -> set:
+    """Top-level names a Python file imports, anywhere in it."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_port_never_imports_jax():
+    # No module of the port, its tools included, nor chip_smoke.py names
+    # jax, the JAX package, bench or benches in an import, even lazily.
+    files = sorted((ROOT / "align3d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert any(f.parent.name == "tools" for f in files) and any(f.parent.name == "parallel" for f in files)
+    for path in files:
+        assert not (_imported_roots(path) & set(FORBIDDEN)), path
+    # And running it loads none of them.
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -115,20 +138,29 @@ def test_port_never_imports_jax():
         # One point-cloud ICP align on each engine and one MeshNormals call.
         "import torch\n"
         "from align3d_torch.icp.pcl_icp import Icp\n"
-        "from align3d_torch.icp.params import IcpParams\n"
+        "from align3d_torch.icp.params import IcpParams, MsIcpParams\n"
         "from align3d_torch.io import read_ply\n"
         "from align3d_torch.ops.mesh import MeshNormals\n"
         f"geo = read_ply({str(ROOT / 'tests' / 'data' / 'teapot.ply')!r})\n"
         "pts, nrm = torch.from_numpy(geo.points), torch.from_numpy(geo.normals)\n"
         "for engine in ('banded', 'hash'):\n"
         "    Icp(IcpParams(max_iterations=2), pts, nrm, nn_engine=engine).align(pts + 0.001, nrm)\n"
-        "vn = MeshNormals(geo.faces, len(geo.points))(pts)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'align3d_tpu')))\n"
-        "print('LOADED', bad, len(r.trajectory), tuple(vn.shape))\n"
+        "vn = MeshNormals(geo.faces, len(geo.points), device='cpu')(pts)\n"
+        # The throughput path on three real frames (bucketed filter on), the
+        # series helpers and the roofline tool's twins.
+        "from align3d_torch.parallel.batch import odometry_step\n"
+        "from align3d_torch.tools import roofline, series\n"
+        "s = series.real_frames(3)\n"
+        "t = odometry_step(s.camera, 0.001, s.colors[:, ::8, ::8], s.depths[:, ::8, ::8],\n"
+        "                  MsIcpParams.repeat(2, IcpParams(max_iterations=2)), 2, BilateralFilter(), 'cpu')\n"
+        "roofline.fma_chains(torch.ones(8), 1)\n"
+        "roofline.table_gather(torch.arange(64, dtype=torch.int32), torch.zeros(8, dtype=torch.int32), 1)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('LOADED', bad, len(r.trajectory), tuple(vn.shape), len(t))\n"
     )
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert f"LOADED [] {FRAMES} (480, 3)" in proc.stdout
+    assert f"LOADED [] {FRAMES} (480, 3) 3" in proc.stdout
 
 
 @pytest.mark.slow

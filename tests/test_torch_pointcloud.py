@@ -184,7 +184,7 @@ def test_geometry_round_trip():
     geo = pc.to_geometry()
     ref = JaxPointCloud(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(nrm), jnp.asarray(col)).to_geometry()
     _assert_geometry_equal(geo, ref)
-    back = PointCloud.from_geometry(geo)
+    back = PointCloud.from_geometry(geo, device="cpu")
     np.testing.assert_array_equal(back.points.numpy(), geo.points)
     np.testing.assert_array_equal(back.colors.numpy(), geo.colors)
     assert bool(back.mask.all()) and len(back) == int(mask.sum())
@@ -210,3 +210,17 @@ def test_gn_weight_and_add_match_jax():
     np.testing.assert_array_equal(scaled.gradient.numpy(), (ta.gradient * 0.5).numpy())
     np.testing.assert_array_equal(scaled.squared_residual_sum.numpy(), (ta.squared_residual_sum * 0.5).numpy())
     assert torch.equal(scaled.count, ta.count)
+
+
+def test_from_geometry_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(PointCloud.from_geometry).parameters["device"].default == "cuda"
+    geo = Geometry(points=np.zeros((4, 3), np.float32))
+    if torch.cuda.is_available():
+        assert PointCloud.from_geometry(geo).points.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            PointCloud.from_geometry(geo)
+    assert PointCloud.from_geometry(geo, device="cpu").points.device.type == "cpu"
