@@ -25,6 +25,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libalign3d_kernels.so"
+PTXAS_LOG = "ptxas.log"  # the compiler's -Xptxas -v report of the library's build
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -36,11 +37,11 @@ _F = ctypes.c_float
 # C entry points and their argument types; each returns cudaGetLastError().
 _SIGNATURES = {
     "a3d_icp_step": [
-        _P, _P, _P, _P, _P, _P, _P,  # rot, trans, points, mask, intensity, geo, taps
+        _P, _P, _P, _P, _P, _P, _P,  # rot, trans, points, mask, intensity, geo, intensity map
         _I, _I, _I, _I,  # batch, n, h, w
         _F, _F, _F, _F,  # fx, fy, cx, cy
         _F, _F, _F, _F,  # max_dist^2, max_angle, max_color^2, huber_delta
-        _P, _I, _P, _P,  # partials, blocks per pair, out, stream
+        _P, _I, _P, _P, _P,  # partials, blocks per pair, arrival counters, out, stream
     ],
     "a3d_bilateral_splat": [
         _P, _P, _I, _I, _I, _F,  # images, color_min per frame, batch, h, w, 1/sigma_color
@@ -111,12 +112,13 @@ def build(verbose: bool = False) -> Path:
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
             jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failed = []
+        failed, reports = [], []
         for obj, proc in jobs:
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{stdout}\n{stderr}")
-            elif verbose:
+            reports.append(stderr)
+            if verbose:
                 print(stderr, end="")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -126,8 +128,23 @@ def build(verbose: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         os.replace(out, lib_path)
+    (BUILD_DIR / PTXAS_LOG).write_text("".join(reports))
     stamp.write_text(want)
     return lib_path
+
+
+def ptxas_report(kernel: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of each built entry function whose (mangled)
+    name contains ``kernel``: registers, shared memory, stack and spills."""
+    log = BUILD_DIR / PTXAS_LOG
+    lines = log.read_text().splitlines() if log.exists() else []
+    out, keep = [], False
+    for line in lines:
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep:
+            out.append(" ".join(line.replace("ptxas info    :", "").split()))
+    return out
 
 
 def lib() -> ctypes.CDLL:

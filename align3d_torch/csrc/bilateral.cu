@@ -1,25 +1,40 @@
 // K2 and K3: the data-dependent stages of the bilateral-grid depth filter,
-// over a batch of frames (blockIdx.y is the frame; one frame is a batch of
-// one). Each frame has its own image, its own color_min read from a device
-// array, and a grid of the depth gd given at run time, so a new depth span
-// or bucket needs no rebuild. A frame's output does not depend on the batch
+// over a batch of frames (the last grid axis is the frame; one frame is a
+// batch of one). Each frame has its own image, its own color_min read from a
+// device array, and a grid of the depth gd given at run time, so a new depth
+// span or bucket needs no rebuild. A frame's output does not depend on the batch
 // around it: at B = 65 it is bitwise its B = 1 output.
 //
 // K2 (bilateral_splat) replaces the TPU kernel
 // align3d_tpu/ops/bilateral.py::_splat_kernel. Each grid cell (gy, gx, z)
 // sums value x weight and weight over the pixels of its static spatial
 // window whose range coordinate lands in channel z. The TPU kernel did this
-// as a one-hot compare-accumulate because a TPU has no scatter; here one
-// thread per cell walks its <= ceil(sigma) x ceil(sigma) window taps in the
-// XLA tap order t = a * B + b, so the float32 sums run in the order of the
-// plain _splat and the result is bitwise equal to it (an atomic scatter
-// would add in a different order on every run). Every product has a 0/1
-// factor, and the range coordinate uses round-to-nearest intrinsics that the
-// compiler never contracts into an FMA, so no bit can differ. What bounds it:
-// ~25 image reads per cell, almost all hits in L1/L2 (neighbouring z of one
-// cell read the same pixels), and the 2 x 4 bytes written per cell
-// (12.4 MB at the sample1 grid 2 x 111 x 146 x 96): a few microseconds of
-// HBM time per frame.
+// as a one-hot compare-accumulate over every z of a block, because a TPU has
+// no scatter. Here one warp owns one (frame, gy, gx) column, whose window
+// is a partition of the image (each pixel lies in exactly one column), so
+// each pixel is evaluated once. The warp zero-fills the column's gd cells
+// of both channels with coalesced stores (16-B stores on the aligned run),
+// then takes its window taps 32 at a time in the XLA tap order
+// t = a * B + b, one tap per lane: chan, wt and wt * val with the
+// round-to-nearest intrinsics of the plain one-hot form, which the compiler
+// never contracts into an FMA. __match_any_sync groups the lanes of equal
+// chan, and the group's lowest lane stores the cell: the group's terms
+// added in ascending tap order, from +0.0 (or from the cell's sum after the
+// earlier 32-tap chunks) with __fadd_rn. That is the plain one-hot sum bit
+// for bit: every term the one-hot form adds for a non-matching tap, and
+// every term of a zero-weight tap, is an exact +-0.0, and adding one to a
+// partial sum that started at +0.0 changes no bit. Taps whose chan falls
+// outside [0, gd) store nothing (the holes, under the nonzero-minimum
+// convention). The ordered loop runs as long as the group is large (up to
+// 25 taps on a flat wall) and issues most of the kernel's instructions, so
+// while a column's weights are all 1 and its depths sum to at most 2^24, its
+// chunks take an exact path instead: there every term and every
+// partial sum is an integer float32 holds, so the ordered sum is the exact
+// sum, which __popc and __reduce_add_sync give in a few instructions
+// (16-bit depths always take it; larger ones fall back to the ordered loop).
+// There are no atomics, so a rerun is bitwise identical. What bounds it:
+// the grid's bytes, written once (2 x 4 B per cell; 12.4 MB at the sample1
+// grid 2 x 111 x 146 x 96), against 1.2 MB of image reads.
 //
 // K3 (bilateral_slice) replaces the TPU kernel
 // align3d_tpu/ops/bilateral.py::_slice_kernel. One thread per pixel samples
@@ -46,42 +61,101 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+constexpr int kSplatColumns = kThreads / 32;  // one warp per grid column
+constexpr unsigned kExact = 1u << 24;  // float32 holds every integer up to here
+
+// Build with -DA3D_SPLAT_EXACT=0 to send every chunk through the ordered loop
+// (the comparison of align3d_torch/tools/ablate.py); the library keeps 1.
+#ifndef A3D_SPLAT_EXACT
+#define A3D_SPLAT_EXACT 1
+#endif
+
+// Zero n floats at p with the lanes of one warp: scalar stores up to the
+// first 16-B boundary, float4 stores over the aligned run, scalar after it.
+__device__ __forceinline__ void zero_run(float* p, int n, int lane) {
+  int head = (int)(((16u - ((uintptr_t)p & 15u)) & 15u) >> 2);
+  head = head < n ? head : n;
+  if (lane < head) p[lane] = 0.0f;
+  float4* body = reinterpret_cast<float4*>(p + head);
+  const int quads = (n - head) >> 2;
+  for (int i = lane; i < quads; i += 32) body[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int tail = head + 4 * quads;
+  if (tail + lane < n) p[tail + lane] = 0.0f;
+}
+
 __global__ void __launch_bounds__(kThreads)
 bilateral_splat(const int32_t* __restrict__ images, const int32_t* __restrict__ cmin, int h,
                 int w, float inv_sc, const int32_t* __restrict__ ridx,
                 const float* __restrict__ rwt, int a_taps, const int32_t* __restrict__ cidx,
                 const float* __restrict__ cwt, int b_taps, int gh, int gw, int gd,
                 float* __restrict__ grids) {
+  __shared__ float s_wt[kSplatColumns][32], s_wv[kSplatColumns][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gx = blockIdx.x * kSplatColumns + warp, gy = blockIdx.y, frame = blockIdx.z;
+  if (gx >= gw) return;  // the whole warp
   const size_t cells = (size_t)gh * gw * gd;
-  const size_t cell = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (cell >= cells) return;
-  const int32_t* image = images + (size_t)blockIdx.y * h * w;
-  float* out = grids + (size_t)blockIdx.y * 2 * cells;
-  const float color_min = (float)cmin[blockIdx.y];
-  const int z = (int)(cell % gd);
-  const int gx = (int)((cell / gd) % gw);
-  const int gy = (int)(cell / ((size_t)gd * gw));
+  const int32_t* image = images + (size_t)frame * h * w;
+  float* value = grids + (size_t)frame * 2 * cells + ((size_t)gy * gw + gx) * gd;
+  float* count = value + cells;
+  const float color_min = (float)cmin[frame];
 
-  float acc_v = 0.0f, acc_c = 0.0f;
-  for (int a = 0; a < a_taps; ++a) {
-    const int r = ridx[gy * a_taps + a];
-    const float ra = rwt[gy * a_taps + a];
-    for (int bt = 0; bt < b_taps; ++bt) {
-      const int c = cidx[gx * b_taps + bt];
-      const int d = image[(size_t)r * w + c];
+  zero_run(value, gd, lane);
+  zero_run(count, gd, lane);
+  __syncwarp();  // orders the zero fill before the cells' sums
+
+  const int taps = a_taps * b_taps;
+  // The column's depths so far, saturated past kExact, and set past it for
+  // good by a weight other than 1: the column is exact while seen <= kExact.
+  unsigned seen = 0;
+  for (int first = 0; first < taps; first += 32) {
+    const int t = first + lane;
+    int chan = -1, d = 0;
+    float wt = 0.0f, wv = 0.0f;
+    if (t < taps) {
+      const int a = t / b_taps, bt = t - a * b_taps;
+      d = image[(size_t)ridx[gy * a_taps + a] * w + cidx[gx * b_taps + bt]];
       const float val = (float)d;
-      const float valid = d > 0 ? 1.0f : 0.0f;
-      const float wt = __fmul_rn(valid, __fmul_rn(ra, cwt[gx * b_taps + bt]));
-      const int chan =
+      wt = __fmul_rn(d > 0 ? 1.0f : 0.0f, __fmul_rn(rwt[gy * a_taps + a], cwt[gx * b_taps + bt]));
+      wv = __fmul_rn(wt, val);
+      const int c =
           __float2int_rz(__fadd_rn(__fmul_rn(__fsub_rn(val, color_min), inv_sc), 0.5f)) +
           kColorPad;
-      const float oh = chan == z ? 1.0f : 0.0f;
-      acc_c = __fadd_rn(acc_c, __fmul_rn(oh, wt));
-      acc_v = __fadd_rn(acc_v, __fmul_rn(oh, __fmul_rn(wt, val)));
+      if (wt != 0.0f && c >= 0 && c < gd) chan = c;  // a zero-weight tap adds nothing
     }
+    const unsigned group = __match_any_sync(0xffffffffu, chan);
+    const bool leader = chan >= 0 && lane == __ffs(group) - 1;
+    // Exact while every weight so far is 1 and the column's depths so far sum
+    // to at most 2^24: then each term and every partial sum is an integer
+    // that float32 holds, the ordered sum is exact, and an integer sum in any
+    // order gives its bits.
+    const unsigned depth = chan >= 0 ? min((unsigned)d, kExact + 1u) : 0u;  // d > 0 where chan >= 0
+    seen = min(seen + __reduce_add_sync(0xffffffffu, depth), kExact + 1u);
+    if (!__all_sync(0xffffffffu, chan < 0 || wt == 1.0f)) seen = kExact + 1u;
+    if (A3D_SPLAT_EXACT && seen <= kExact) {
+      const unsigned sum = __reduce_add_sync(group, depth);
+      if (leader) {
+        count[chan] = __fadd_rn(first == 0 ? 0.0f : count[chan], (float)__popc(group));
+        value[chan] = __fadd_rn(first == 0 ? 0.0f : value[chan], (float)sum);
+      }
+    } else {
+      // The ordered sum: the group's lowest lane adds its terms in lane order.
+      s_wt[warp][lane] = wt;
+      s_wv[warp][lane] = wv;
+      __syncwarp();
+      if (leader) {
+        float acc_c = first == 0 ? 0.0f : count[chan];
+        float acc_v = first == 0 ? 0.0f : value[chan];
+        for (unsigned m = group; m != 0u; m &= m - 1u) {
+          const int j = __ffs(m) - 1;
+          acc_c = __fadd_rn(acc_c, s_wt[warp][j]);
+          acc_v = __fadd_rn(acc_v, s_wv[warp][j]);
+        }
+        count[chan] = acc_c;
+        value[chan] = acc_v;
+      }
+    }
+    __syncwarp();  // the next chunk reads these cells and rewrites s_wt / s_wv
   }
-  out[cell] = acc_v;
-  out[cells + cell] = acc_c;
 }
 
 __device__ __forceinline__ float lerp_x(const float* __restrict__ row, int x0, int x1,
@@ -139,8 +213,7 @@ extern "C" int a3d_bilateral_splat(const void* images, const void* cmin, int bat
                                    int w, float inv_sc, const void* ridx, const void* rwt,
                                    int a_taps, const void* cidx, const void* cwt, int b_taps,
                                    int gh, int gw, int gd, void* out, void* stream) {
-  const size_t cells = (size_t)gh * gw * gd;
-  const dim3 blocks((unsigned)((cells + kThreads - 1) / kThreads), (unsigned)batch);
+  const dim3 blocks((unsigned)((gw + kSplatColumns - 1) / kSplatColumns), (unsigned)gh, (unsigned)batch);
   bilateral_splat<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(images), static_cast<const int32_t*>(cmin), h, w, inv_sc,
       static_cast<const int32_t*>(ridx), static_cast<const float*>(rwt), a_taps,

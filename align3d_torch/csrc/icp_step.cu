@@ -10,21 +10,44 @@
 // reduce both systems to two 8x8 blocks [[H, g], [g^T, sum w r^2]] with the
 // weight sum at [7, 7].
 //
-// What bounds it on an H100: memory. Per pixel it reads 12 bytes of source
-// point, 2 bytes of mask and luma, and gathers 32 bytes of target geometry
-// and 48 bytes of intensity taps; it does ~150 flops. At 640x480 that is
-// ~29 MB per iteration, about 9 us at 3.35 TB/s. The TPU kernels banded the
-// target and packed it to ints and bf16 because a TPU has no fast random
-// gather; the card has one, so this kernel gathers the exact packs directly
-// at the projected pixel (the exact association, which the banded kernels
-// approximate inside their band), in float32 throughout.
+// What bounds it on an H100: memory, and the latency of the gathers that
+// depend on the projection. Per source pixel it streams 12 bytes of point
+// and 2 bytes of mask and luma; per valid one it gathers a 32-byte row of
+// target geometry and 8 values of the pair's bordered (H+2, W+2) intensity
+// map. The TPU kernels banded the target and packed it to ints and bf16
+// because a TPU has no fast random gather; the card has one, so this kernel
+// gathers at the exact projected pixel (the exact association, which the
+// banded kernels approximate inside their band), in float32 throughout. The
+// design moves only the bytes the function needs and keeps loads in flight:
 //
-// Design: pass 1 runs one thread per source pixel (each thread walks a fixed
-// stride of pixels), keeps the 58 sums of both systems in registers, reduces
-// them across the warp with shuffles and across the block's warps in shared
-// memory, always in the same order, and writes per-block partials. Pass 2
-// runs one block per pair and sums the partials in block order. There are no
-// float atomics, so a rerun is bitwise identical.
+// - the taps are read from the intensity map itself, tap (dv, du) of base
+//   pixel (v0, u0) at map[v0 + dv, u0 + du] (what pack_intensity_taps
+//   copies, so no value changes): neighbouring pixels share them through
+//   L1, where a pack repeats each value nine times;
+// - the geometry row is two read-only 16-byte loads, issued with the taps'
+//   loads before the gates that read them;
+// - the next pixel's point, mask and luma are loaded before the current
+//   pixel's arithmetic;
+// - the 58 sums and the pose stay in registers (at most 128 a thread, so
+//   2 blocks of 256 threads an SM, without spills);
+// - the Jacobian's 1/z terms take one reciprocal where the plain step takes
+//   four divisions (the projection, which decides the association, keeps
+//   the plain step's division).
+//
+// Reduction: each thread keeps the 58 sums of both systems in registers;
+// the block reduces them through a shared-memory transpose, always in the
+// same order (on an H100 this beat a shuffle tree per sum, 290 shuffles a
+// warp, and a butterfly, which spilled), and writes per-block partials.
+// Each thread takes 8 pixels, which spreads the block's fixed cost thinner.
+// The number of blocks per pair depends only on the pair's pixel count,
+// never on B. The last block of a pair to arrive (an int32 arrival
+// counter per pair, incremented after a __threadfence) sums the pair's
+// partials in block-index order, writes the blocks and re-arms the counter
+// to 0. The sum order does not depend on which block arrives last, and there
+// are no float atomics, so a rerun is bitwise identical and a pair's blocks
+// at B = 64 are bitwise its B = 1 blocks. Launches that share counters must
+// not overlap, so the wrapper keeps one set per device and stream: launches
+// on one stream run in order, and launches on two streams use two sets.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,9 +56,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSys = 29;          // 21 H (upper, row-major) + 6 g + sum w r^2 + sum w
 constexpr int kVals = 2 * kSys;   // geometric then colour
+constexpr int kMinBlocks = 2;     // resident blocks per SM: at most 128 registers a thread
+constexpr int kPitch = kThreads + 8;  // row of the reduction's transpose: 8 mod 32 banks
+constexpr int kFinishBatch = 16;  // partials in flight per thread of the final sum
 
 struct StepParams {
   int n, h, w;
@@ -69,32 +94,69 @@ __device__ __forceinline__ void accumulate(float* acc, int off, const float j[6]
   acc[off + 28] += wt;
 }
 
-__global__ void __launch_bounds__(kThreads)
-icp_step_partials(const float* __restrict__ rot, const float* __restrict__ trans,
-                  const float* __restrict__ points, const uint8_t* __restrict__ mask,
-                  const uint8_t* __restrict__ intensity, const float* __restrict__ geo,
-                  const float* __restrict__ taps, StepParams p,
-                  float* __restrict__ partials) {
+// Index of augmented-block entry (i, j) of one system in its 29 sums, or -1.
+__device__ __forceinline__ int sum_index(int i, int j) {
+  if (i < 6 && j < 6) {
+    const int lo = i < j ? i : j, hi = i < j ? j : i;
+    return lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
+  }
+  if (i < 6 && j == 6) return 21 + i;
+  if (i == 6 && j < 6) return 21 + j;
+  if (i == 6 && j == 6) return 27;
+  if (i == 7 && j == 7) return 28;
+  return -1;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+icp_step_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
+                const float* __restrict__ points, const uint8_t* __restrict__ mask,
+                const uint8_t* __restrict__ intensity, const float* __restrict__ geo,
+                const float* __restrict__ imap, StepParams p, float* __restrict__ partials,
+                unsigned int* __restrict__ arrivals, float* __restrict__ out) {
   const int b = blockIdx.y;
   const int nblk = gridDim.x;
-  float R[9], t[3];
+  __shared__ float tr[kSys][kPitch];  // one system's sums, one column per thread
+  __shared__ float block_sums[kVals];
+  __shared__ float sums[kVals];
+  __shared__ bool last;
+  float pose[12];  // R row-major, then t
 #pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = rot[b * 9 + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) t[k] = trans[b * 3 + k];
+  for (int k = 0; k < 12; ++k) pose[k] = k < 9 ? rot[b * 9 + k] : trans[b * 3 + k - 9];
 
   const size_t base = (size_t)b * p.n;
+  const int mw = p.w + 2;
+  const float* map = imap + (size_t)b * (p.h + 2) * mw;
   float acc[kVals];
 #pragma unroll
   for (int k = 0; k < kVals; ++k) acc[k] = 0.0f;
 
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n; i += nblk * kThreads) {
-    if (!mask[base + i]) continue;
-    const float* sp = points + (base + i) * 3;
-    const float x = sp[0], y = sp[1], z = sp[2];
-    const float px = x * R[0] + y * R[1] + z * R[2] + t[0];
-    const float py = x * R[3] + y * R[4] + z * R[5] + t[1];
-    const float pz = x * R[6] + y * R[7] + z * R[8] + t[2];
+  const int stride = nblk * kThreads;
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  // The pixel's streamed inputs, loaded one pixel ahead.
+  uint8_t m_next = 0, lum_next = 0;
+  float x_next = 0.0f, y_next = 0.0f, z_next = 0.0f;
+  if (i < p.n) {
+    m_next = __ldg(mask + base + i);
+    lum_next = __ldg(intensity + base + i);
+    x_next = __ldg(points + (base + i) * 3);
+    y_next = __ldg(points + (base + i) * 3 + 1);
+    z_next = __ldg(points + (base + i) * 3 + 2);
+  }
+  for (; i < p.n; i += stride) {
+    const uint8_t m = m_next, lum = lum_next;
+    const float x = x_next, y = y_next, z = z_next;
+    const int next = i + stride;
+    if (next < p.n) {
+      m_next = __ldg(mask + base + next);
+      lum_next = __ldg(intensity + base + next);
+      x_next = __ldg(points + (base + next) * 3);
+      y_next = __ldg(points + (base + next) * 3 + 1);
+      z_next = __ldg(points + (base + next) * 3 + 2);
+    }
+    if (!m) continue;
+    const float px = x * pose[0] + y * pose[1] + z * pose[2] + pose[9];
+    const float py = x * pose[3] + y * pose[4] + z * pose[5] + pose[10];
+    const float pz = x * pose[6] + y * pose[7] + z * pose[8] + pose[11];
 
     const float safe_z = (pz == 0.0f) ? 1e-12f : pz;
     const float u = px * p.fx / safe_z + p.cx;
@@ -104,10 +166,23 @@ icp_step_partials(const float* __restrict__ rot, const float* __restrict__ trans
     const float u_int = truncf(u + 0.5f);
     const float v_int = truncf(v + 0.5f);
     if (!(u_int >= 0.0f && u_int < (float)p.w && v_int >= 0.0f && v_int < (float)p.h)) continue;
-    const float* g = geo + (base + (size_t)((int)v_int * p.w + (int)u_int)) * 8;
-    if (!(g[6] > 0.0f)) continue;
-    const float tnx = g[3], tny = g[4], tnz = g[5];
-    const float dx = g[0] - px, dy = g[1] - py, dz = g[2] - pz;
+
+    // Both gathers at once: the geometry row, and the taps around the
+    // clamped sample position (fmaxf maps NaN to 0, so the base is in range).
+    const float4* g4 =
+        reinterpret_cast<const float4*>(geo + (base + (size_t)((int)v_int * p.w + (int)u_int)) * 8);
+    const float4 ga = __ldg(g4), gb = __ldg(g4 + 1);
+    const float us = fminf(fmaxf(u, 0.0f), (float)(p.w - 1));
+    const float vs = fminf(fmaxf(v, 0.0f), (float)(p.h - 1));
+    const float u0 = truncf(us), v0 = truncf(vs);
+    const float* row = map + (size_t)(int)v0 * mw + (int)u0;
+    const float t0 = __ldg(row), t1 = __ldg(row + 1), t2 = __ldg(row + 2);
+    const float t3 = __ldg(row + mw), t4 = __ldg(row + mw + 1), t5 = __ldg(row + mw + 2);
+    const float t6 = __ldg(row + 2 * mw), t7 = __ldg(row + 2 * mw + 1);
+
+    if (!(gb.z > 0.0f)) continue;
+    const float tnx = ga.w, tny = gb.x, tnz = gb.y;
+    const float dx = ga.x - px, dy = ga.y - py, dz = ga.z - pz;
     if (!(dx * dx + dy * dy + dz * dz <= p.max_dist2)) continue;
     // Reference quirk: the transformed source POINT against the target
     // normal; a NaN angle is not rejected.
@@ -125,107 +200,103 @@ icp_step_partials(const float* __restrict__ rot, const float* __restrict__ trans
     accumulate(acc, 0, jg, r_geom, w_geom);
 
     // Photometric term at the clamped sample position.
-    const float us = fminf(fmaxf(u, 0.0f), (float)(p.w - 1));
-    const float vs = fminf(fmaxf(v, 0.0f), (float)(p.h - 1));
-    const float u0 = truncf(us), v0 = truncf(vs);
-    const float* tp = taps + (base + (size_t)((int)v0 * p.w + (int)u0)) * 12;
-    float T[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) T[k] = tp[k];
     const float fu = us - u0, fv = vs - v0;
-    const float value = lerp2(T[0], T[1], T[3], T[4], fu, fv);
+    const float value = lerp2(t0, t1, t3, t4, fu, fv);
 
     const float uh_c = us + 0.005f;
     const float u0h = truncf(uh_c);
     const bool cu = u0h > u0;
-    const float uh = lerp2(cu ? T[1] : T[0], cu ? T[2] : T[1], cu ? T[4] : T[3],
-                           cu ? T[5] : T[4], uh_c - u0h, fv);
+    const float uh = lerp2(cu ? t1 : t0, cu ? t2 : t1, cu ? t4 : t3, cu ? t5 : t4, uh_c - u0h, fv);
     const float vh_c = vs + 0.005f;
     const float v0h = truncf(vh_c);
     const bool cv = v0h > v0;
-    const float vh = lerp2(cv ? T[3] : T[0], cv ? T[4] : T[1], cv ? T[6] : T[3],
-                           cv ? T[7] : T[4], fu, vh_c - v0h);
+    const float vh = lerp2(cv ? t3 : t0, cv ? t4 : t1, cv ? t6 : t3, cv ? t7 : t4, fu, vh_c - v0h);
     const float du = (uh - value) * 200.0f;
     const float dv = (vh - value) * 200.0f;
 
-    const float r_color = (float)intensity[base + i] * 0.003921569f - value;
+    const float r_color = (float)lum * 0.003921569f - value;
     if (!(r_color * r_color <= p.max_color2)) continue;
-    const float zz = safe_z * safe_z;
-    const float dfx = p.fx / safe_z;
-    const float dcx = -px * p.fx / zz;
-    const float dfy = p.fy / safe_z;
-    const float dcy = -py * p.fy / zz;
+    const float inv_z = 1.0f / safe_z;
+    const float dfx = p.fx * inv_z;
+    const float dcx = -px * p.fx * inv_z * inv_z;
+    const float dfy = p.fy * inv_z;
+    const float dcy = -py * p.fy * inv_z * inv_z;
     const float cgx = du * dfx, cgy = dv * dfy, cgz = du * dcx + dv * dcy;
     const float jc[6] = {cgx, cgy, cgz,
                          py * cgz - pz * cgy, pz * cgx - px * cgz, px * cgy - py * cgx};
     accumulate(acc, kSys, jc, r_color, w_geom);
   }
 
-  // Block reduction in a fixed order: warp shuffles, then warps in order.
-  __shared__ float smem[kWarps][kVals];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Block reduction in a fixed order, one system at a time: each thread
+  // writes its 29 sums as a column of a shared transpose (no bank
+  // conflicts: a row is 8 mod 32 banks long); 8 threads per sum each add
+  // 32 entries, strided by 8, and a 3-step shuffle tree joins the 8.
 #pragma unroll
-  for (int k = 0; k < kVals; ++k) {
-    float s = acc[k];
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) smem[warp][k] = s;
+    for (int k = 0; k < kSys; ++k) tr[k][threadIdx.x] = acc[half * kSys + k];
+    __syncthreads();
+    const int k = threadIdx.x >> 3, q = threadIdx.x & 7;
+    float s = 0.0f;
+    if (k < kSys) {
+#pragma unroll
+      for (int e = 0; e < kThreads / 8; ++e) s += tr[k][e * 8 + q];
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (k < kSys && q == 0) block_sums[half * kSys + k] = s;
+    __syncthreads();  // before the next system overwrites the transpose
+  }
+
+  if (threadIdx.x < kVals) {
+    partials[((size_t)b * nblk + blockIdx.x) * kVals + threadIdx.x] = block_sums[threadIdx.x];
+    __threadfence();  // the partial is visible device-wide before the arrival
   }
   __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + b, 1u) == (unsigned)(nblk - 1);
+  __syncthreads();
+  if (!last) return;
+
+  // The pair's last block: its partials summed in block-index order (read
+  // from L2, past this SM's L1), then the (2, 8, 8) blocks.
+  __threadfence();
   if (threadIdx.x < kVals) {
+    const float* src = partials + (size_t)b * nblk * kVals + threadIdx.x;
     float s = 0.0f;
+    int blk = 0;
+    for (; blk + kFinishBatch <= nblk; blk += kFinishBatch) {
+      float vals[kFinishBatch];
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += smem[wi][threadIdx.x];
-    partials[((size_t)b * nblk + blockIdx.x) * kVals + threadIdx.x] = s;
+      for (int q = 0; q < kFinishBatch; ++q) vals[q] = __ldcg(src + (size_t)(blk + q) * kVals);
+#pragma unroll
+      for (int q = 0; q < kFinishBatch; ++q) s += vals[q];
+    }
+    for (; blk < nblk; ++blk) s += __ldcg(src + (size_t)blk * kVals);
+    sums[threadIdx.x] = s;
   }
-}
-
-// Index of augmented-block entry (i, j) of one system in its 29 sums, or -1.
-__device__ __forceinline__ int sum_index(int i, int j) {
-  if (i < 6 && j < 6) {
-    const int lo = i < j ? i : j, hi = i < j ? j : i;
-    return lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    const int e = threadIdx.x;
+    const int k = sum_index((e >> 3) & 7, e & 7);
+    out[(size_t)b * 128 + e] = k >= 0 ? sums[(e >> 6) * kSys + k] : 0.0f;
   }
-  if (i < 6 && j == 6) return 21 + i;
-  if (i == 6 && j < 6) return 21 + j;
-  if (i == 6 && j == 6) return 27;
-  if (i == 7 && j == 7) return 28;
-  return -1;
-}
-
-// One block of 128 threads per pair: thread = one entry of the 2x8x8 output.
-__global__ void icp_step_finish(const float* __restrict__ partials, int nblk,
-                                float* __restrict__ out) {
-  const int b = blockIdx.x;
-  const int e = threadIdx.x;  // 0..127
-  const int sys = e >> 6, i = (e >> 3) & 7, j = e & 7;
-  const int k = sum_index(i, j);
-  float s = 0.0f;
-  if (k >= 0) {
-    const float* src = partials + (size_t)b * nblk * kVals + sys * kSys + k;
-    for (int blk = 0; blk < nblk; ++blk) s += src[(size_t)blk * kVals];
-  }
-  out[(size_t)b * 128 + e] = s;
+  if (threadIdx.x == 0) arrivals[b] = 0u;  // re-armed for the next launch
 }
 
 }  // namespace
 
 extern "C" int a3d_icp_step(const void* rot, const void* trans, const void* points,
                             const void* mask, const void* intensity, const void* geo,
-                            const void* taps, int batch, int n, int h, int w, float fx,
-                            float fy, float cx, float cy, float max_dist2, float max_angle,
-                            float max_color2, float huber, void* partials, int nblk,
-                            void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                            const void* intensity_map, int batch, int n, int h, int w,
+                            float fx, float fy, float cx, float cy, float max_dist2,
+                            float max_angle, float max_color2, float huber, void* partials,
+                            int nblk, void* arrivals, void* out, void* stream) {
   StepParams p{n, h, w, fx, fy, cx, cy, max_dist2, max_angle, max_color2, huber};
-  icp_step_partials<<<dim3(nblk, batch), kThreads, 0, s>>>(
+  icp_step_kernel<<<dim3(nblk, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rot), static_cast<const float*>(trans),
       static_cast<const float*>(points), static_cast<const uint8_t*>(mask),
       static_cast<const uint8_t*>(intensity), static_cast<const float*>(geo),
-      static_cast<const float*>(taps), p, static_cast<float*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  icp_step_finish<<<batch, 128, 0, s>>>(static_cast<const float*>(partials), nblk,
-                                         static_cast<float*>(out));
+      static_cast<const float*>(intensity_map), p, static_cast<float*>(partials),
+      static_cast<unsigned int*>(arrivals), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

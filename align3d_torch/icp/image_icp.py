@@ -33,7 +33,7 @@ from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp.params import IcpParams
 from align3d_torch.ops import icp_fused
 from align3d_torch.ops.icp_fused import _f32, icp_step  # noqa: F401  (icp_step is re-exported)
-from align3d_torch.ops.target_pack import pack_geometry, pack_intensity_taps
+from align3d_torch.ops.target_pack import pack_geometry
 from align3d_torch.optim.gauss_newton import GNSystem
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
@@ -60,8 +60,9 @@ def prepack_batched(
 ) -> tuple:
     """The pose-independent inputs of the fused step for B pairs (the
     counterpart of ``prepack_v4_batched``): the sources as K1 reads them,
-    with their ``uint8`` masks, and the targets' geometry and intensity-tap
-    packs. Returns ``(points, mask, intensity, geo, taps, h, w)``."""
+    with their ``uint8`` masks, the targets' geometry pack and their bordered
+    intensity maps (K1 reads its taps there). Returns ``(points, mask,
+    intensity, geo, intensity_map, h, w)``."""
     bsz = target_intensity_map.shape[0]
     h, w = target_intensity_map.shape[-2] - 2, target_intensity_map.shape[-1] - 2
     geo = pack_geometry(
@@ -72,7 +73,7 @@ def prepack_batched(
         source_mask.reshape(bsz, h * w).to(torch.uint8),
         source_intensity.reshape(bsz, h * w).contiguous(),
         geo,
-        pack_intensity_taps(target_intensity_map),
+        target_intensity_map.to(torch.float32).contiguous(),
         h,
         w,
     )
@@ -88,13 +89,13 @@ def align_impl_batched(
     """GN loop of B pairs on prepacked inputs (the counterpart of
     ``align_impl_pallas_v4_batched_packed``); returns (best_R, best_t,
     best_residual), (B, 3, 3), (B, 3), (B,), on the inputs' device."""
-    points, mask, intensity, geo, taps, h, w = packed
+    points, mask, intensity, geo, intensity_map, h, w = packed
     weight, color_weight = _f32(params.weight), _f32(params.color_weight)
     rot, trans = initial_rotation, initial_translation
     best_res = torch.full(rot.shape[:1], torch.inf, dtype=torch.float32, device=rot.device)
     best_rot, best_trans = rot, trans
     for _ in range(params.max_iterations):
-        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, taps, h, w, intrinsics, params)
+        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics, params)
         geom, color = _gn_from_aug16(aug[:, 0], aug[:, 1])
         merged = geom.add_weighted(color, weight, color_weight)
         residual = merged.mean_squared_residual()

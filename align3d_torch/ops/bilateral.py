@@ -91,14 +91,15 @@ def true_depth(color_min: float, color_max: float, sigma_color: float) -> int:
 
 def grid_geometry(
     image: torch.Tensor, sigma_space: float, sigma_color: float, pad_depth_to: int = 1
-) -> tuple[int, tuple[int, int, int], int]:
+) -> tuple[torch.Tensor, tuple[int, int, int], int]:
     """``(color_min, (gh, gw, gd), true_gd)`` of an image's grid, with
-    ``color_min`` the minimum including holes: ``gd`` is the true depth
-    ``true_gd`` padded up to a multiple of ``pad_depth_to``."""
+    ``color_min`` the minimum including holes, a 0-d tensor on the image's
+    device (so the kernels read it without a copy per call): ``gd`` is the
+    true depth ``true_gd`` padded up to a multiple of ``pad_depth_to``."""
     gh, gw = _grid_dims(*image.shape[-2:], sigma_space)
-    color_min, color_max = (int(v) for v in torch.aminmax(image))  # sizes the grid
-    true_gd = true_depth(color_min, color_max, sigma_color)
-    return color_min, (gh, gw, -(-true_gd // pad_depth_to) * pad_depth_to), true_gd
+    lo, hi = torch.aminmax(image)
+    true_gd = true_depth(int(lo), int(hi), sigma_color)  # sizes the grid
+    return lo, (gh, gw, -(-true_gd // pad_depth_to) * pad_depth_to), true_gd
 
 
 def nonzero_min_max(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -173,20 +174,27 @@ def _splat(image, color_min, grid_shape, sigma_space: float, sigma_color: float)
 
     global SPLAT_LAUNCHES
     frames, cmin = _frames(image, color_min)
+    out = torch.empty((*image.shape[:-2], 2, *grid_shape), dtype=torch.float32, device=image.device)
+    _splat_launch(_kernels.lib().a3d_bilateral_splat, frames, cmin, grid_shape, sigma_space, sigma_color, out)
+    SPLAT_LAUNCHES += 1
+    return out
+
+
+def _splat_launch(entry, frames, cmin, grid_shape, sigma_space: float, sigma_color: float, out) -> None:
+    """Launch the splat C entry point ``entry`` (``a3d_bilateral_splat`` of
+    a build of ``csrc/bilateral.cu``) on (B, H, W) int32 frames with their
+    (B,) int32 color_min, into the contiguous grids ``out``."""
     gh, gw, gd = grid_shape
     bsz, h, w = frames.shape
-    ridx, rwt, cidx, cwt = _splat_tables(h, w, gh, gw, sigma_space, image.device)
-    out = torch.empty((*image.shape[:-2], 2, gh, gw, gd), dtype=torch.float32, device=image.device)
-    status = _kernels.lib().a3d_bilateral_splat(
+    ridx, rwt, cidx, cwt = _splat_tables(h, w, gh, gw, sigma_space, frames.device)
+    status = entry(
         frames.data_ptr(), cmin.data_ptr(), bsz, h, w, float(np.float32(1.0 / sigma_color)),
         ridx.data_ptr(), rwt.data_ptr(), ridx.shape[1],
         cidx.data_ptr(), cwt.data_ptr(), cidx.shape[1],
         gh, gw, gd, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(image.device).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(frames.device).cuda_stream),
     )
     _kernels.check(status, "a3d_bilateral_splat")
-    SPLAT_LAUNCHES += 1
-    return out
 
 
 # -- blur and normalize ----------------------------------------------------
@@ -361,13 +369,13 @@ def check_plan_coverage(plan, n_frames: int) -> None:
 @dataclasses.dataclass
 class BilateralGrid:
     """Built grids: channel-major (..., 2, gh, gw, gd) [value, count] + metadata
-    (``color_min`` and ``depth_limit`` per frame: ints for one frame, tensors of
-    the leading shape for a batch)."""
+    (``color_min`` and ``depth_limit`` per frame: ints or 0-d tensors for one
+    frame, tensors of the leading shape for a batch)."""
 
     data_cm: torch.Tensor
     sigma_space: float
     sigma_color: float
-    color_min: int | torch.Tensor
+    color_min: int | torch.Tensor  # from_image: a 0-d tensor on the image's device
     depth_limit: int | torch.Tensor  # the true (reference-sized) grid depth, grid.rs:51-54
 
     @classmethod

@@ -5,10 +5,11 @@ pair (port of ``align3d_tpu/icp/image_icp.py::icp_step``), with the
 reference's quirks (see :mod:`align3d_torch.icp.image_icp`).
 :func:`icp_step_fused` computes the same for B frame pairs at once: the
 geometric and the colour normal equations, as two 8x8 augmented blocks
-``[[H, g], [g^T, sum w r^2]]`` with the weight sum at [7, 7]. On a CUDA
-tensor it launches ``csrc/icp_step.cu``; on a CPU tensor it runs the plain
-twin, ``icp_step`` plus ``GNSystem.from_residuals``. Nothing else selects
-between the two.
+``[[H, g], [g^T, sum w r^2]]`` with the weight sum at [7, 7]. It reads the
+target's intensity taps from the bordered intensity map itself. On a CUDA
+tensor it launches ``csrc/icp_step.cu``, one launch per call; on a CPU
+tensor it runs the plain twin, ``pack_intensity_taps`` then ``icp_step``
+plus ``GNSystem.from_residuals``. Nothing else selects between the two.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from align3d_torch import _kernels
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp.params import IcpParams
-from align3d_torch.ops.target_pack import GEO_CHANNELS, TAP_CHANNELS, taps_bilinear_grad
+from align3d_torch.ops.target_pack import GEO_CHANNELS, pack_intensity_taps, taps_bilinear_grad
 from align3d_torch.optim.gauss_newton import GNSystem, huber_weight
 from align3d_torch.se3 import Transform
 
@@ -29,8 +30,22 @@ from align3d_torch.se3 import Transform
 LAUNCHES = 0
 
 _THREADS = 256
-_PIXELS_PER_THREAD = 4
+_PIXELS_PER_THREAD = 8
 _PARTIALS = 58  # 2 systems x (21 H + 6 g + sum w r^2 + sum w)
+
+# Per (device, stream), the kernel's int32 arrival counter of each pair:
+# zeros, allocated once and re-armed to zero by every launch. Launches on one
+# stream run in order, so they can share their stream's counters; each stream
+# has its own, so launches on two streams never mix their counts.
+_ARRIVALS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _arrivals(device: torch.device, stream: int, pairs: int) -> torch.Tensor:
+    counters = _ARRIVALS.get((device, stream))
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(max(pairs, 64), dtype=torch.int32, device=device)
+        _ARRIVALS[(device, stream)] = counters
+    return counters
 
 
 def _f32(x: float) -> float:
@@ -125,8 +140,10 @@ def _aug(geom, color) -> torch.Tensor:
     return torch.stack(blocks, dim=-3)
 
 
-def icp_step_plain(rot, trans, points, mask, intensity, geo, taps, h, w, intrinsics, params) -> torch.Tensor:
-    """The plain-PyTorch twin of the kernel, one pair at a time."""
+def icp_step_plain(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics, params) -> torch.Tensor:
+    """The plain-PyTorch twin of the kernel, one pair at a time, on the tap
+    pack of each pair's intensity map."""
+    taps = pack_intensity_taps(intensity_map)
     out = []
     for b in range(rot.shape[0]):
         geom, color = icp_step(
@@ -144,7 +161,7 @@ def icp_step_fused(
     mask: torch.Tensor,  # (B, N) u8 source validity
     intensity: torch.Tensor,  # (B, N) u8 source luma
     geo: torch.Tensor,  # (B, N, 8) f32 target pack_geometry
-    taps: torch.Tensor,  # (B, N, 12) f32 target pack_intensity_taps
+    intensity_map: torch.Tensor,  # (B, H+2, W+2) f32 bordered target intensity maps
     h: int,
     w: int,
     intrinsics: CameraIntrinsics,
@@ -152,7 +169,7 @@ def icp_step_fused(
 ) -> torch.Tensor:
     """One GN accumulation for B pairs -> (B, 2, 8, 8) f32 [geometric, colour]."""
     if rot.device.type == "cpu":
-        return icp_step_plain(rot, trans, points, mask, intensity, geo, taps, h, w, intrinsics, params)
+        return icp_step_plain(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics, params)
     if rot.device.type != "cuda":
         raise ValueError(f"icp_step_fused runs on cuda or cpu tensors, got {rot.device}")
 
@@ -166,27 +183,31 @@ def icp_step_fused(
     _kernels.check_tensor(mask, "mask", (bsz, n), u8, dev)
     _kernels.check_tensor(intensity, "intensity", (bsz, n), u8, dev)
     _kernels.check_tensor(geo, "geo", (bsz, n, GEO_CHANNELS), f32, dev)
-    _kernels.check_tensor(taps, "taps", (bsz, n, TAP_CHANNELS), f32, dev)
+    _kernels.check_tensor(intensity_map, "intensity_map", (bsz, h + 2, w + 2), f32, dev)
+    if geo.data_ptr() % 16:
+        raise ValueError("geo must start on a 16-byte boundary (the kernel reads its rows as float4)")
 
     if params.huber_delta is not None and params.huber_delta <= 0.0:
         raise ValueError(f"huber_delta must be positive or None, got {params.huber_delta}")
 
     nblk = -(-n // (_THREADS * _PIXELS_PER_THREAD))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     partials = torch.empty((bsz, nblk, _PARTIALS), dtype=f32, device=dev)
+    arrivals = _arrivals(dev, stream, bsz)
     out = torch.empty((bsz, 2, 8, 8), dtype=f32, device=dev)
     huber = 0.0 if params.huber_delta is None else params.huber_delta
     lib = _kernels.lib()
     status = lib.a3d_icp_step(
         rot.data_ptr(), trans.data_ptr(), points.data_ptr(), mask.data_ptr(), intensity.data_ptr(),
-        geo.data_ptr(), taps.data_ptr(),
+        geo.data_ptr(), intensity_map.data_ptr(),
         bsz, n, h, w,
         intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy,
         _f32(params.max_distance * params.max_distance),
         params.max_normal_angle,
         _f32(params.max_color_distance * params.max_color_distance),
         huber,
-        partials.data_ptr(), nblk, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        partials.data_ptr(), nblk, arrivals.data_ptr(), out.data_ptr(),
+        ctypes.c_void_p(stream),
     )
     _kernels.check(status, "a3d_icp_step")
     LAUNCHES += 1

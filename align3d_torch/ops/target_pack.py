@@ -8,7 +8,10 @@
   samples exactly, including the case where ``u + 0.005`` crosses into the
   next cell (``src/intensity_map.rs:150-210``).
 
-Both the plain ICP step and the CUDA GN-step kernel read these tables.
+The plain ICP step reads both tables. The CUDA GN-step kernel reads the
+geometry table and takes its taps from the bordered intensity map itself,
+tap (dv, du) of row ``v * W + u`` at ``I[v+dv, u+du]``: the values this
+pack copies.
 """
 
 from __future__ import annotations

@@ -234,6 +234,43 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, calls: int, kernel: str | None = None) -> tuple[float | None, int]:
+    """(device ms per call of ``fn`` from ``torch.profiler`` over ``calls``
+    calls, the number of device activities the profiler saw).
+
+    The profiler misses an activity now and then (on an H100 with torch
+    2.11: 1 of 50 launches, 2 of 10), so the activities' summed duration is
+    not divided by ``calls``. With ``kernel`` every activity must be a launch
+    of it (the wrapper issues nothing else) and the time is their mean.
+    Without, every call is taken to issue the same ``k = ceil(seen /
+    calls)`` activities, and the time is k times their mean. None when the
+    profiler saw no activity.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    acts = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return per_call_ms(acts, calls, kernel), len(acts)
+
+
+def per_call_ms(activities: list[tuple[str, float]], calls: int, kernel: str | None = None) -> float | None:
+    """:func:`device_ms`'s arithmetic on the (name, µs) device activities
+    seen over ``calls`` calls."""
+    if kernel is not None and not all(kernel in name for name, _ in activities):
+        others = sorted({name for name, _ in activities if kernel not in name})
+        raise RuntimeError(f"a call of {kernel}'s wrapper issued other device work: {others[:5]}")
+    if not activities:
+        return None
+    per_call = 1 if kernel is not None else -(-len(activities) // calls)
+    return sum(us for _, us in activities) / len(activities) * per_call / 1e3
+
+
 class Probes:
     """Inputs of the probes at their measured sizes, made from a seed on the card."""
 
@@ -333,7 +370,8 @@ def kernel_sections(device, batch: int = 64, reps: int = 20) -> dict:
     ms = time_ms(lambda: icp_fused.icp_step_fused(*args), reps=reps)
     return {"batch": batch, "ms": ms, "us_per_pair": ms * 1e3 / batch,
             "bytes": icp_step_bytes(packed[1], targets.height, targets.width),
-            "gathers": 2 * int(packed[1].to(torch.bool).sum()), "pack_bytes": packed[3].nbytes + packed[4].nbytes}
+            "gathers": 2 * int(packed[1].to(torch.bool).sum()),
+            "target_bytes": packed[3].nbytes + packed[4].nbytes}  # geometry packs and intensity maps
 
 
 def measure(device="cuda") -> dict:

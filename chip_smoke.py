@@ -6,11 +6,13 @@
 Run from the root of a checkout. Phases, each of which fails the run:
 
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
-2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed).
+2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
+   the ``-Xptxas -v`` report (registers, shared memory, spills) of K1 and K2.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
-   ``torch.profiler``, and per-call time of back-to-back calls between one
-   CUDA event pair. K1-K3: sample1 frames 0 and 1, 640x480, the three
+   ``torch.profiler`` (for K1-K3 checked to be one launch of the kernel a
+   call and nothing else, as the paths call them), and per-call time of
+   back-to-back calls between one CUDA event pair. K1-K3: sample1 frames 0 and 1, 640x480, the three
    pyramid levels, the (2, 111, 146, 96) bilateral grid. K4: payload mode
    on the sample1 frame-0 grid (270,213 points, cell 0.05, band 512) with
    frame 1's 270,282 points as queries; nearest mode at 500k x 500k
@@ -18,8 +20,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
    and the teapot. P1 and P2, the roofline probes, against their twins at
    the sizes the roofline tool measures them (P1 relative, P2 bitwise). K2
    and K3 over the 65 sample1 frames of the throughput series in one launch
-   each, bitwise against 65 single-frame launches, and K2 bitwise against
-   its plain twin; K2 over each deep bucket of the mixed series at the
+   each, bitwise against 65 single-frame launches, K2 bitwise against its
+   plain twin, and their library yardsticks (``index_add_``, ``grid_sample``)
+   at that shape; K2 over each deep bucket of the mixed series at the
    bucket's depth, bitwise against its plain twin; K3 over the 29 sample2
    frames of the mixed series (gd > 128) against its plain twin.
 4. Drive each path with its kernels' launch counts reset just before and
@@ -36,16 +39,16 @@ Run from the root of a checkout. Phases, each of which fails the run:
       and of the 204,800-face grid mesh;
    d. the throughput path: ``odometry_step`` on the 65-frame real series
       (64 pairs, 640x480, ``MsIcpParams.default()``), bilateral filter off
-      and then bucketed on: one K1 launch per GN iteration over all 64 pairs
-      (70), one K2 and one K3 launch per bucket; each pair's K1 blocks at
-      B = 64 bitwise their B = 1 blocks, and held against the plain twin
-      at those poses moved by phase 3's twist; the relative poses bitwise
-      against the sequential ``MultiscaleAlign`` on the same pyramids; the
-      pairs against
-      ground truth; a bitwise rerun; the mixed sample1 + sample2 series
-      through at least two depth buckets, each frame's bucketed filter
-      bitwise its own ``filter_static``, the true adjacent pairs against
-      ground truth.
+      and then bucketed on: one K1 launch per GN iteration over all 64
+      pairs (70; K1 is one launch per call), one K2 and one K3 launch per
+      bucket; each pair's K1 blocks at B = 64 bitwise their B = 1 blocks,
+      and held against the plain twin at those poses moved by phase 3's
+      twist; the relative poses bitwise against the
+      sequential ``MultiscaleAlign`` on the same pyramids; the pairs
+      against ground truth; a bitwise rerun; the mixed sample1 + sample2
+      series through at least two depth buckets, each frame's bucketed
+      filter bitwise its own ``filter_static``, the true adjacent pairs
+      against ground truth.
 5. Break a frame's time down: host clock per phase (decode, pyramid build,
    bilateral filter, ICP), each ended by a synchronise, and
    ``torch.profiler`` over the same frames for the device's busy time and
@@ -109,8 +112,7 @@ TIMED_PLAIN_NN = 5  # calls per timing of the K4 twin, which takes ~0.1 s a call
 PROFILED_PLAIN_NN = 1  # ... and ~40k profiler events per call
 PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 #: Kernel names in csrc/, by the wrapper that launches them.
-KERNEL_NAMES = {"icp": ("icp_step_partials", "icp_step_finish"),
-                "splat": ("bilateral_splat",), "slice": ("bilateral_slice",)}
+KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",)}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -131,17 +133,21 @@ def device_events(torch, prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def timings(torch, fn, n: int = TIMED_CALLS, profiled: int | None = None) -> tuple[float | None, float]:
+def timings(torch, fn, n: int = TIMED_CALLS, profiled: int | None = None,
+            kernel: str | None = None) -> tuple[float | None, float]:
     """(device ms per call, per-call ms) of ``fn``.
 
-    The device time is the summed duration of the device activities that
-    ``torch.profiler`` records over ``profiled`` calls (default ``n``),
-    divided by their number (None when the profiler sees none). The per-call
-    time is one CUDA event pair around ``n`` back-to-back calls, divided by
-    ``n``: where the host dispatches more slowly than the device runs, it is
-    the host's time per call.
+    The device time is ``tools/roofline.py::device_ms`` over ``profiled``
+    calls (default ``n``): the mean of the device activities the profiler
+    saw, which does not read low when it misses some (it does: 1 of 50
+    launches, 2 of 10), times the activities a call issues; with
+    ``kernel``, the run fails unless every activity is a launch of that
+    kernel, so that a wrapper's copies cannot hide. The per-call time is one
+    CUDA event pair around ``n`` back-to-back calls, divided by ``n``: where
+    the host dispatches more slowly than the device runs, it is the host's
+    time per call.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from align3d_torch.tools.roofline import device_ms
 
     for _ in range(3):
         fn()
@@ -154,12 +160,10 @@ def timings(torch, fn, n: int = TIMED_CALLS, profiled: int | None = None) -> tup
     end.synchronize()
     per_call = start.elapsed_time(end) / n
     profiled = n if profiled is None else profiled
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in device_events(torch, prof))
-    return (device_us / 1e3 / profiled if device_us > 0 else None), per_call
+    ms, seen = device_ms(fn, profiled, kernel)
+    if kernel is not None and seen != profiled:
+        print(f"the profiler saw {seen} {kernel} launches of {profiled}")
+    return ms, per_call
 
 
 def nvidia_smi() -> str:
@@ -186,23 +190,29 @@ def check_splat(torch, bil, depth):
     lib = library_splat(torch, bil, depth, cmin, shape, filt, got)
     # Bytes: the image once and the grid once; ~10 flops per pixel.
     b = bound(depth.numel() * 4 + got.numel() * 4, depth.numel() * 10)
-    return err, timings(torch, lambda: bil._splat(*args)), timings(torch, lambda: bil._splat_plain(*args)), b, lib
+    return (err, timings(torch, lambda: bil._splat(*args), kernel=KERNEL_NAMES["splat"][0]),
+            timings(torch, lambda: bil._splat_plain(*args)), b, lib)
 
 
-def library_splat(torch, bil, depth, cmin, shape, filt, kernel_out):
-    """One ``index_add_`` of w * v and w into the flat channel-major grid,
-    at the cells the reference's splat map gives each pixel (timed only)."""
+def library_splat(torch, bil, depth, cmin, shape, filt, kernel_out, n: int = TIMED_CALLS):
+    """One ``index_add_`` of w * v and w into flat channel-major grids, at
+    the cells the reference's splat map gives each pixel (timed only).
+    ``depth``: (H, W) or (B, H, W) frames; ``cmin``: an int or (B,)."""
     gh, gw, gd = shape
-    h, w = depth.shape
+    frames = depth.reshape(-1, *depth.shape[-2:])
+    nb, h, w = frames.shape
     inv_ss = float(1.0 / filt.sigma_space)
     rows = ((torch.arange(h, device=depth.device, dtype=torch.float32) * inv_ss + 0.5).to(torch.int64) + 2)
     cols = ((torch.arange(w, device=depth.device, dtype=torch.float32) * inv_ss + 0.5).to(torch.int64) + 2)
-    vals = depth.to(torch.float32)
-    chan = ((vals - cmin) * (1.0 / filt.sigma_color) + 0.5).to(torch.int64) + 2
-    idx = ((rows[:, None] * gw + cols[None, :]) * gd + chan).reshape(-1)
-    wt = (depth > 0).to(torch.float32).reshape(-1)
+    vals = frames.to(torch.float32)
+    cm = torch.as_tensor(cmin, device=depth.device).reshape(-1, 1, 1).to(torch.float32)
+    # Holes (weight 0) may land outside [0, gd) under the nonzero minimum.
+    chan = (((vals - cm) * (1.0 / filt.sigma_color) + 0.5).to(torch.int64) + 2).clamp_(0, gd - 1)
+    fb = torch.arange(nb, device=depth.device)[:, None, None]
+    idx = (((fb * gh + rows[None, :, None]) * gw + cols[None, None, :]) * gd + chan).reshape(-1)
+    wt = (frames > 0).to(torch.float32).reshape(-1)
     src = torch.stack([wt * vals.reshape(-1), wt])
-    flat = torch.zeros((2, gh * gw * gd), device=depth.device)
+    flat = torch.zeros((2, nb * gh * gw * gd), device=depth.device)
 
     def call():
         flat.zero_()
@@ -210,9 +220,12 @@ def library_splat(torch, bil, depth, cmin, shape, filt, kernel_out):
 
     call()
     torch.cuda.synchronize()
-    rel = float((flat.reshape(kernel_out.shape) - kernel_out).abs().max() / kernel_out.abs().max())
-    flat_ms, _ = timings(torch, lambda: flat.index_add_(1, idx, src))
-    return {"library_ms": flat_ms, "library_call": "Tensor.index_add_ (2 channels, one call)",
+    got = flat.reshape(2, nb, gh, gw, gd).transpose(0, 1)
+    ref = kernel_out.reshape(nb, 2, gh, gw, gd)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    del got, ref
+    flat_ms, call_ms = timings(torch, lambda: flat.index_add_(1, idx, src), n=n)
+    return {"library_ms": flat_ms, "library_call_ms": call_ms, "library_call": "Tensor.index_add_ (2 channels, one call)",
             "library_max_rel_diff": rel, "library_ok": rel <= INDEX_ADD_RTOL}
 
 
@@ -228,11 +241,12 @@ def check_slice(torch, bil, depth):
     print(f"K3 slice: max|kernel - plain| = {err} before the cast, {cast_err} after")
     if not (err <= SLICE_ATOL and cast_err <= SLICE_CAST_MAX):
         raise AssertionError("K3 slice differs from its plain twin")
-    lib = library_slice(torch, grid, depth, filt, got)
+    lib = library_slice(torch, grid.data_cm, depth, grid.color_min, filt, got)
     # Bytes: the grid cells sampled, the image and the output once; ~30 flops a pixel.
     cells = sampled_cells(torch, bil, depth, grid.color_min, *grid.data_cm.shape[1:], filt)
     b = bound(cells * 4 + depth.numel() * 8, depth.numel() * 30)
-    return err, timings(torch, lambda: bil._slice(*args)), timings(torch, lambda: bil._slice_plain(*args)), b, lib
+    return (err, timings(torch, lambda: bil._slice(*args), kernel=KERNEL_NAMES["slice"][0]),
+            timings(torch, lambda: bil._slice_plain(*args)), b, lib)
 
 
 def sampled_cells(torch, bil, images, color_min, gh, gw, gd, filt) -> int:
@@ -249,32 +263,37 @@ def sampled_cells(torch, bil, images, color_min, gh, gw, gd, filt) -> int:
     return int(torch.unique(torch.stack(cells)).numel())
 
 
-def library_slice(torch, grid, depth, filt, kernel_out):
+def library_slice(torch, grids, depth, color_min, filt, kernel_out, n: int = TIMED_CALLS):
     """``grid_sample`` 5-D trilinear (border padding, corners aligned) at the
-    pixels' grid coordinates, as K3's yardstick where it reproduces K3."""
+    pixels' grid coordinates, as K3's yardstick where it reproduces K3.
+    ``grids``: (2, gh, gw, gd) or (B, 2, gh, gw, gd), one per frame of
+    ``depth``; ``color_min``: an int or (B,)."""
     import torch.nn.functional as F
 
-    gh, gw, gd = grid.data_cm.shape[1:]
-    h, w = depth.shape
+    gh, gw, gd = grids.shape[-3:]
+    frames = depth.reshape(-1, *depth.shape[-2:])
+    nb, h, w = frames.shape
     inv_ss = float(1.0 / filt.sigma_space)
     y = torch.arange(h, device=depth.device, dtype=torch.float32) * inv_ss + 2
     x = torch.arange(w, device=depth.device, dtype=torch.float32) * inv_ss + 2
-    z = (depth.to(torch.float32) - grid.color_min) * (1.0 / filt.sigma_color) + 2
+    cm = torch.as_tensor(color_min, device=depth.device).reshape(-1, 1, 1).to(torch.float32)
+    z = (frames.to(torch.float32) - cm) * (1.0 / filt.sigma_color) + 2
 
     def norm(c, n):
         return c * (2.0 / (n - 1)) - 1.0
 
-    coords = torch.stack([norm(z, gd), norm(x, gw)[None, :].expand(h, w), norm(y, gh)[:, None].expand(h, w)], -1)
-    coords = coords[None, None].contiguous()
-    value = grid.data_cm[0][None, None].contiguous()
+    coords = torch.stack([norm(z, gd), norm(x, gw)[None, None, :].expand(nb, h, w),
+                          norm(y, gh)[None, :, None].expand(nb, h, w)], -1)
+    coords = coords[:, None].contiguous()
+    value = grids.reshape(nb, 2, gh, gw, gd)[:, :1].contiguous()
 
     def call():
         return F.grid_sample(value, coords, mode="bilinear", padding_mode="border", align_corners=True)
 
-    diff = float((call()[0, 0, 0] - kernel_out).abs().max())
-    ms, _ = timings(torch, call)
+    diff = float((call()[:, 0, 0].reshape(kernel_out.shape) - kernel_out).abs().max())
+    ms, call_ms = timings(torch, call, n=n)
     ok = diff <= GRID_SAMPLE_ATOL
-    return {"library_ms": ms if ok else None, "library_call": "F.grid_sample 5-D trilinear",
+    return {"library_ms": ms if ok else None, "library_call_ms": call_ms, "library_call": "F.grid_sample 5-D trilinear",
             "library_max_abs_diff": diff, "library_ok": ok,
             **({} if ok else {"library_reason": f"grid_sample differs from the sample by {diff}"})}
 
@@ -282,7 +301,7 @@ def library_slice(torch, grid, depth, filt, kernel_out):
 def check_icp(torch, pyr0, pyr1):
     from align3d_torch.icp.params import MsIcpParams
     from align3d_torch.ops import icp_fused
-    from align3d_torch.ops.target_pack import pack_geometry, pack_intensity_taps
+    from align3d_torch.ops.target_pack import pack_geometry
     from align3d_torch.se3 import Transform
 
     params = MsIcpParams.default()
@@ -295,8 +314,7 @@ def check_icp(torch, pyr0, pyr1):
             pose.rotation[None].contiguous(), pose.translation[None].contiguous(),
             src.points.reshape(1, n, 3).contiguous(), src.mask.reshape(1, n).to(torch.uint8),
             src.intensities.reshape(1, n).contiguous(),
-            pack_geometry(tgt.points, tgt.normals, tgt.mask)[None],
-            pack_intensity_taps(tgt.intensity_map)[None],
+            pack_geometry(tgt.points, tgt.normals, tgt.mask)[None], tgt.intensity_map[None].contiguous(),
             h, w, tgt.intrinsics, params[level],
         )
         got, ref = icp_fused.icp_step_fused(*args), icp_fused.icp_step_plain(*args)
@@ -307,7 +325,7 @@ def check_icp(torch, pyr0, pyr1):
         if not torch.equal(again, got):
             raise AssertionError("K1 is not deterministic")
         if level == 0:
-            timing = (timings(torch, lambda: icp_fused.icp_step_fused(*args)),
+            timing = (timings(torch, lambda: icp_fused.icp_step_fused(*args), kernel=KERNEL_NAMES["icp"][0]),
                       timings(torch, lambda: icp_fused.icp_step_plain(*args)))
             # Bytes: each input byte K1 needs once (tools/roofline.py); ~300
             # flops per valid source pixel.
@@ -642,10 +660,12 @@ def check_batched_bilateral(torch, bil, real, mixed) -> dict:
     ref = bil._splat_plain(*splat_args)
     splat_plain, splat_err = torch.equal(grids, ref), float((grids - ref).abs().max())
     del ref
+    splat_lib = library_splat(torch, bil, depths, cmin, (gh, gw, gd), filt, grids, n=10)
     norm = bil._normalize(bil._blur(grids, gd))
     slice_args = (norm, depths, cmin, filt.sigma_space, filt.sigma_color)
     sliced = bil._slice(*slice_args)
     slice_err = float((sliced - bil._slice_plain(*slice_args)).abs().max())
+    slice_lib = library_slice(torch, norm, depths, cmin, filt, sliced, n=10)
     # The twins at this shape, CUDA events around one call each.
     splat_plain_ms = time_ms(lambda: bil._splat_plain(*splat_args), reps=1, warmup=0)
     slice_plain_ms = time_ms(lambda: bil._slice_plain(*slice_args), reps=1, warmup=0)
@@ -653,13 +673,18 @@ def check_batched_bilateral(torch, bil, real, mixed) -> dict:
                                             filt.sigma_color), grids[b]) for b in range(len(depths)))
     same_slice = all(torch.equal(bil._slice(norm[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space,
                                             filt.sigma_color), sliced[b]) for b in range(len(depths)))
-    splat_ms, _ = timings(torch, lambda: bil._splat(*splat_args), n=10)
-    slice_ms, _ = timings(torch, lambda: bil._slice(*slice_args), n=10)
+    splat_ms, splat_call_ms = timings(torch, lambda: bil._splat(*splat_args), n=10, kernel=KERNEL_NAMES["splat"][0])
+    slice_ms, slice_call_ms = timings(torch, lambda: bil._slice(*slice_args), n=10, kernel=KERNEL_NAMES["slice"][0])
     cells = sampled_cells(torch, bil, depths, cmin, gh, gw, gd, filt)
+    # At this size a call outlasts its dispatch, so the CUDA-event time per
+    # call of back-to-back calls checks the profiler's device time.
     print(f"K2/K3 over {len(depths)} frames, grid (2, {gh}, {gw}, {gd}): bitwise against single-frame launches: "
           f"splat {same_splat}, slice {same_slice}; against the plain twins: K2 bitwise {splat_plain}, "
-          f"K3 max |kernel - plain| {slice_err}; device ms per launch {splat_ms} / {slice_ms}, "
-          f"twins {splat_plain_ms} / {slice_plain_ms}")
+          f"K3 max |kernel - plain| {slice_err}; device ms per launch (profiler / CUDA events) "
+          f"{splat_ms} / {splat_call_ms} and {slice_ms} / {slice_call_ms}, "
+          f"twins {splat_plain_ms} / {slice_plain_ms}; index_add_ {splat_lib['library_ms']} / "
+          f"{splat_lib['library_call_ms']} (max rel diff {splat_lib['library_max_rel_diff']}), grid_sample "
+          f"{slice_lib['library_ms']} / {slice_lib['library_call_ms']} (max diff {slice_lib['library_max_abs_diff']})")
     if not (same_splat and same_slice and splat_plain and slice_err <= SLICE_ATOL):
         raise AssertionError("batched K2/K3 differ from single-frame launches or from their plain twins")
     del grids, norm, sliced
@@ -692,12 +717,14 @@ def check_batched_bilateral(torch, bil, real, mixed) -> dict:
     if not (dgd > 128 and len(deep) >= 3 and err <= SLICE_ATOL):
         raise AssertionError("K3 at B >= 3, gd > 128 differs from its plain twin")
     return {"batch": len(depths), "gd": gd, "splat_ms": splat_ms, "slice_ms": slice_ms, "slice_cells": cells,
+            "splat_call_ms": splat_call_ms, "slice_call_ms": slice_call_ms,
             "splat_plain_ms": splat_plain_ms, "slice_plain_ms": slice_plain_ms, "slice_max_abs_err": slice_err,
             "splat_max_abs_err": splat_err,
             "splat_ms_per_frame": splat_ms / len(depths) if splat_ms else None,
             "slice_ms_per_frame": slice_ms / len(depths) if slice_ms else None,
             "splat_bitwise_plain": splat_plain, "deep_splat_bitwise_plain": {g: s for g, (_, s) in deep_buckets.items()},
-            "deep_batch": len(deep), "deep_gd": dgd, "deep_max_abs_err": err}
+            "deep_batch": len(deep), "deep_gd": dgd, "deep_max_abs_err": err,
+            "splat_library": splat_lib, "slice_library": slice_lib}
 
 
 def relative_errors(torch, TransformMetrics, rel, gt):
@@ -926,6 +953,9 @@ def main() -> int:
     _kernels.build(verbose=True)
     _kernels.lib()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
+    ptxas = {key: _kernels.ptxas_report(KERNEL_NAMES[key][0]) for key in ("icp", "splat")}
+    for key, lines in ptxas.items():
+        print(f"ptxas -v {KERNEL_NAMES[key][0]}: " + "; ".join(lines))
 
     done("phases 1-2")
 
@@ -1076,7 +1106,7 @@ def main() -> int:
 
     kernels = [
         entry("icp_step_fused (K1)", "align3d_torch/csrc/icp_step.cu", "align3d_tpu/ops/icp_pallas_v4.py:96",
-              "icp", icp, "max |kernel - plain| / max|plain| over H, g and sum w r^2",
+              "icp", icp, "max |kernel - plain| / max|plain| over H, g and sum w r^2", ptxas=ptxas["icp"],
               launches_by_path={k: v["icp"] for k, v in by_path.items()},
               shapes={"batch64_real_pairs": {
                   "ms": k1_64["ms"], "us_per_pair": k1_64["us_per_pair"],
@@ -1085,18 +1115,22 @@ def main() -> int:
                   "max_abs_err": throughput["k1_batch64_max_rel_err_plain"],
                   **bound(k1_64["bytes"], 300 * k1_64["gathers"] / 2)}}),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",
-              "splat", splat, "max |kernel - plain|",
+              "splat", splat, "max |kernel - plain|", ptxas=ptxas["splat"],
               launches_by_path={k: v["splat"] for k, v in by_path.items()},
               shapes={f"batch{frames}_gd{batched_bil['gd']}": {
-                  "ms": batched_bil["splat_ms"], "ms_per_frame": batched_bil["splat_ms_per_frame"],
+                  "ms": batched_bil["splat_ms"], "call_ms": batched_bil["splat_call_ms"],
+                  "ms_per_frame": batched_bil["splat_ms_per_frame"],
                   "plain_ms": batched_bil["splat_plain_ms"], "max_abs_err": batched_bil["splat_max_abs_err"],
+                  **batched_bil["splat_library"],
                   **bound(frames * (480 * 640 * 4 + 2 * gh * gw * batched_bil["gd"] * 4), frames * 480 * 640 * 10)}}),
         entry("bilateral_slice (K3)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:389",
               "slice", slice_, "max |kernel - plain| before the cast",
               launches_by_path={k: v["slice"] for k, v in by_path.items()},
               shapes={f"batch{frames}_gd{batched_bil['gd']}": {
-                  "ms": batched_bil["slice_ms"], "ms_per_frame": batched_bil["slice_ms_per_frame"],
+                  "ms": batched_bil["slice_ms"], "call_ms": batched_bil["slice_call_ms"],
+                  "ms_per_frame": batched_bil["slice_ms_per_frame"],
                   "plain_ms": batched_bil["slice_plain_ms"], "max_abs_err": batched_bil["slice_max_abs_err"],
+                  **batched_bil["slice_library"],
                   **bound(batched_bil["slice_cells"] * 4 + frames * 480 * 640 * 8, frames * 480 * 640 * 30)},
                   "sample2_deep": {"frames": batched_bil["deep_batch"], "gd": batched_bil["deep_gd"],
                                    "max_abs_err": batched_bil["deep_max_abs_err"]}}),

@@ -118,13 +118,14 @@ def test_fused_step_plain_twin_layout(sample2_pyramids):
     pose = Transform.exp(torch.from_numpy(TWIST))
     pts, mask, inten = _flat(src)
     geo = pack_geometry(tgt.points, tgt.normals, tgt.mask)
-    taps = pack_intensity_taps(tgt.intensity_map)
     launches = icp_fused.LAUNCHES
+    # The fused step takes the bordered intensity map; the plain step its tap pack.
     aug = icp_fused.icp_step_fused(
         pose.rotation[None], pose.translation[None], pts[None], mask[None].to(torch.uint8), inten[None],
-        geo[None], taps[None], h, w, tgt.intrinsics, params,
+        geo[None], tgt.intensity_map[None], h, w, tgt.intrinsics, params,
     )
     assert icp_fused.LAUNCHES == launches  # no kernel on the CPU
+    taps = pack_intensity_taps(tgt.intensity_map)
     geom, color = icp_step(pose, pts, mask, inten, geo, taps, h, w, tgt.intrinsics, params)
     for block, sys in zip(aug[0], (geom, color)):
         np.testing.assert_array_equal(block[:6, :6].numpy(), sys.hessian.numpy())
@@ -132,6 +133,55 @@ def test_fused_step_plain_twin_layout(sample2_pyramids):
         np.testing.assert_array_equal(block[6, :6].numpy(), sys.gradient.numpy())
         assert float(block[6, 6]) == float(sys.squared_residual_sum)
         assert float(block[7, 7]) == float(sys.count)
+
+
+@pytest.mark.parametrize("huber", [None, 0.004])
+@pytest.mark.parametrize("level", [0, 2])
+def test_fused_step_on_intensity_map_matches_jax(sample2_pyramids, level, huber):
+    """icp_step_fused on the bordered intensity map (the kernel's inputs, run
+    by the plain twin on the CPU) against JAX's icp_step on its tap pack,
+    within the tolerances of test_icp_step_matches_jax."""
+    (jt, js), (tt, ts), _ = sample2_pyramids
+    jtgt, jsrc, ttgt, tsrc = jt[level], js[level], tt[level], ts[level]
+    h, w = jtgt.height, jtgt.width
+    jax_ms = JaxMsIcpParams.default().customize(lambda i, p: p.replace(huber_delta=huber))
+    params = convert.ms_icp_params_from_dicts([dataclasses.asdict(p) for p in jax_ms])[level]
+    jpose = JaxTransform.exp(jnp.asarray(TWIST))
+    ref = jax_icp_step(
+        jpose, *_flat(jsrc), jax_pack_geometry(jtgt.points, jtgt.normals, jtgt.mask),
+        jax_pack_taps(jtgt.intensity_map), h, w, jtgt.intrinsics, jax_ms[level],
+    )
+    pose = convert.transform_from_numpy(np.asarray(jpose.rotation), np.asarray(jpose.translation))
+    pts, mask, inten = _flat(tsrc)
+    aug = icp_fused.icp_step_fused(
+        pose.rotation[None], pose.translation[None], pts[None], mask[None].to(torch.uint8), inten[None],
+        pack_geometry(ttgt.points, ttgt.normals, ttgt.mask)[None], ttgt.intensity_map[None], h, w,
+        ttgt.intrinsics, params,
+    )[0]
+    valid = int(tsrc.mask.sum())
+    for r, block in zip(ref, aug):
+        hs, gs = np.asarray(r.hessian), np.asarray(r.gradient)
+        assert abs(float(block[7, 7]) - float(r.count)) <= 1e-4 * valid
+        np.testing.assert_allclose(block[:6, :6].numpy(), hs, rtol=0, atol=1e-4 * np.abs(hs).max())
+        np.testing.assert_allclose(block[:6, 6].numpy(), gs, rtol=0, atol=1e-4 * np.abs(gs).max())
+        np.testing.assert_allclose(float(block[6, 6]), float(r.squared_residual_sum), rtol=1e-4)
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (5, 7), (48, 64)])
+def test_map_addressed_taps_equal_pack_rows(h, w):
+    """K1 reads tap (dv, du) of base pixel (v0, u0) at flat index
+    (v0 + dv) * (W + 2) + u0 + du of the pair's bordered map: bitwise the
+    rows pack_intensity_taps builds, at every base pixel including the last
+    row and column (the zero lanes 9-11 are not read)."""
+    rng = np.random.default_rng(h * 100 + w)
+    imap = torch.from_numpy(rng.uniform(0.0, 1.0, (3, h + 2, w + 2)).astype(np.float32))
+    taps = pack_intensity_taps(imap)
+    v0, u0 = (t.reshape(-1) for t in torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij"))
+    flat = imap.reshape(3, -1)
+    for dv in range(3):
+        for du in range(3):
+            assert torch.equal(flat[:, (v0 + dv) * (w + 2) + u0 + du], taps[..., dv * 3 + du])
+    assert not taps[..., 9:].any()
 
 
 def _align_args(tgt, src):

@@ -18,7 +18,7 @@ from align3d_torch.io import read_off
 from align3d_torch.io.datasets import SlamTbDataset
 from align3d_torch.ops import bilateral as bil
 from align3d_torch.ops import icp_fused, mesh, nn_banded
-from align3d_torch.ops.target_pack import pack_geometry, pack_intensity_taps
+from align3d_torch.ops.target_pack import pack_geometry
 from align3d_torch.range_image import RangeImageBuilder
 from align3d_torch.se3 import Transform
 
@@ -63,6 +63,40 @@ def test_splat_kernel_bitwise(depth_frames, name):
     assert torch.equal(got, bil._splat_plain(*args))
 
 
+@pytest.mark.parametrize("sigma_space", [7.0, 12.0])
+@pytest.mark.parametrize("name", ["sample1", "deep"])
+def test_splat_kernel_bitwise_wide_window_ragged_depth(depth_frames, name, sigma_space):
+    """Windows of more than 32 taps per column (49 and 144: the warp takes
+    them in 32-tap chunks) at an unpadded, ragged grid depth, under both
+    color_min conventions."""
+    depth = depth_frames[name]
+    gh, gw = bil._grid_dims(*depth.shape, sigma_space)
+    taps = bil._splat_tables(*depth.shape, gh, gw, sigma_space, depth.device)
+    assert taps[0].shape[1] * taps[2].shape[1] > 32
+    for cmin in (int(depth.min()), int(depth[depth > 0].min())):
+        gd = bil.true_depth(cmin, int(depth.max()), SIGMA_COLOR) | 1  # odd: no column is 16-B aligned throughout
+        args = (depth, cmin, (gh, gw, gd), sigma_space, SIGMA_COLOR)
+        before = bil.SPLAT_LAUNCHES
+        got = bil._splat(*args)
+        assert bil.SPLAT_LAUNCHES == before + 1
+        assert torch.equal(got, bil._splat_plain(*args))
+
+
+def test_splat_kernel_bitwise_rounding_sums(cuda_device):
+    """Depths in [2^22, 2^23): a window's sum passes 2^24 and rounds in
+    float32, so the kernel takes its ordered path; still bitwise."""
+    rng = np.random.default_rng(7)
+    depth = rng.integers(1 << 22, 1 << 23, size=(48, 64))
+    depth[3:6, 4:9] = 0
+    depth = torch.from_numpy(depth.astype(np.int32)).to(cuda_device)
+    sigma_color = 2.0e5  # ~21 channels over the span
+    for sigma_space in (SIGMA_SPACE, 7.0):
+        gh, gw = bil._grid_dims(*depth.shape, sigma_space)
+        cmin = int(depth[depth > 0].min())
+        args = (depth, cmin, (gh, gw, bil.true_depth(cmin, int(depth.max()), sigma_color)), sigma_space, sigma_color)
+        assert torch.equal(bil._splat(*args), bil._splat_plain(*args))
+
+
 @pytest.mark.parametrize("name", ["sample1", "deep"])
 def test_slice_kernel_matches_plain(depth_frames, name):
     depth = depth_frames[name]
@@ -88,7 +122,7 @@ def _step_args(tgt, src, pose, params):
         pose.rotation[None].contiguous(), pose.translation[None].contiguous(),
         src.points.reshape(1, n, 3).contiguous(), src.mask.reshape(1, n).to(torch.uint8),
         src.intensities.reshape(1, n).contiguous(),
-        pack_geometry(tgt.points, tgt.normals, tgt.mask)[None], pack_intensity_taps(tgt.intensity_map)[None],
+        pack_geometry(tgt.points, tgt.normals, tgt.mask)[None], tgt.intensity_map[None].contiguous(),
         tgt.height, tgt.width, tgt.intrinsics, params,
     )
 
@@ -337,6 +371,52 @@ def test_icp_step_batch64_bitwise_against_single(cuda_device):
         one = icp_fused.icp_step_fused(rot[b:b + 1], trans[b:b + 1], *(t[b:b + 1] for t in packed[:5]),
                                        *packed[5:], targets.intrinsics, params)
         assert torch.equal(one[0], batched[b]), b
+
+
+def test_icp_step_kernel_rearms_across_batch_sizes(cuda_device):
+    """K1 launched back to back at B = 64, 1, 3, 64: each call is bitwise a
+    repeat of itself (the last block of each pair re-arms its arrival
+    counter), and each pair's blocks are bitwise its blocks at B = 64."""
+    from align3d_torch.icp.image_icp import prepack_batched
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(64, cuda_device)
+    n = targets.height * targets.width
+    packed = prepack_batched(
+        sources.points.reshape(64, n, 3), sources.mask.reshape(64, n), sources.intensities.reshape(64, n),
+        targets.points.reshape(64, n, 3), targets.mask.reshape(64, n), targets.normals.reshape(64, n, 3),
+        targets.intensity_map,
+    )
+    pose = Transform.exp(torch.tensor([0.004, -0.002, 0.003, 0.002, -0.003, 0.001], device=cuda_device))
+    rot, trans = pose.rotation.expand(64, 3, 3).contiguous(), pose.translation.expand(64, 3).contiguous()
+    params = MsIcpParams.default()[0]
+
+    def step(b):
+        return icp_fused.icp_step_fused(rot[:b], trans[:b], *(t[:b] for t in packed[:5]), *packed[5:],
+                                        targets.intrinsics, params)
+
+    before = icp_fused.LAUNCHES
+    first = step(64)
+    for b in (64, 1, 3, 64):
+        got = step(b)
+        assert torch.equal(got, step(b)), b
+        assert torch.equal(got, first[:b]), b
+    assert icp_fused.LAUNCHES == before + 9
+    torch.cuda.synchronize()
+    assert not icp_fused._ARRIVALS[(rot.device, torch.cuda.current_stream().cuda_stream)].any()
+
+    # Two side streams at once, each with its own counters: every launch is
+    # still bitwise the default stream's result.
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = {}
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.setdefault(s.cuda_stream, []).append(step(64))
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, first) for runs in outs.values() for got in runs)
+    assert all(not icp_fused._ARRIVALS[(rot.device, s.cuda_stream)].any() for s in streams)
 
 
 # -- P1, P2: the roofline probes ------------------------------------------------------

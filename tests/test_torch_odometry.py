@@ -149,7 +149,7 @@ def test_port_never_imports_jax():
         # The throughput path on three real frames (bucketed filter on), the
         # series helpers and the roofline tool's twins.
         "from align3d_torch.parallel.batch import odometry_step\n"
-        "from align3d_torch.tools import roofline, series\n"
+        "from align3d_torch.tools import ablate, roofline, series\n"
         "s = series.real_frames(3)\n"
         "t = odometry_step(s.camera, 0.001, s.colors[:, ::8, ::8], s.depths[:, ::8, ::8],\n"
         "                  MsIcpParams.repeat(2, IcpParams(max_iterations=2)), 2, BilateralFilter(), 'cpu')\n"

@@ -119,9 +119,34 @@ def test_icp_step_bytes_counts_each_input_once():
     assert rl.icp_step_bytes(mask, 10, 10) == 200 + 37 * 41 + 2 * (12 * 12 * 4 + 48 + 512)
 
 
+@pytest.mark.parametrize("seen,calls,kernel,want_ms", [
+    (50, 50, "k", 0.004),  # every launch seen
+    (49, 50, "k", 0.004),  # one dropped: the mean does not read low
+    (7, 10, "k", 0.004),
+    (9766, 50, None, 196 * 0.004),  # 196 activities a call, 34 dropped
+])
+def test_device_ms_does_not_read_low_when_the_profiler_drops(seen, calls, kernel, want_ms):
+    acts = [("k", 4.0)] * seen
+    assert rl.per_call_ms(acts, calls, kernel) == pytest.approx(want_ms, rel=1e-12)
+
+
+def test_device_ms_rejects_a_wrapper_that_issues_other_work():
+    with pytest.raises(RuntimeError, match="Memcpy"):
+        rl.per_call_ms([("k", 4.0), ("Memcpy HtoD", 1.0)], 1, "k")
+    assert rl.per_call_ms([], 5, "k") is None
+
+
 def test_tool_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert rl.main() != 0
     assert capsys.readouterr().out == ""
     with pytest.raises(RuntimeError, match="CUDA"):
         rl.measure("cuda")
+
+
+def test_ablation_tool_fails_without_a_card(monkeypatch, capsys):
+    from align3d_torch.tools import ablate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ablate.main() != 0
+    assert capsys.readouterr().out == ""
