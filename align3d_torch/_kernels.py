@@ -52,7 +52,7 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _I,  # grids, images, color_min per frame, batch, h, w
         _I, _I, _I, _F,  # gh, gw, gd, 1/sigma_color
         _P, _P, _P, _P, _P, _P,  # y0, y1, ya, x0, x1, xa
-        _P, _P,  # out, stream
+        _I, _P, _P,  # form (b) (normalize, int32 out) or (a), out, stream
     ],
     "a3d_nn_banded": [
         _P, _P, _P,  # planes, queries, band starts

@@ -1,6 +1,7 @@
 """Carry state over from the JAX package, handed over as numpy arrays and
 plain dicts, into the port's types (the parity tests use it to feed the same
-pyramids, grids and parameters to both packages)."""
+pyramids, grids and parameters to both packages). Tensors go to ``device``,
+the card unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
 
@@ -22,13 +23,13 @@ def _tensor(array, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(array, dtype=dtype, order="C")).to(device)
 
 
-def transform_from_numpy(rot, trans, device="cpu") -> Transform:
+def transform_from_numpy(rot, trans, device="cuda") -> Transform:
     """(…, 3, 3) rotation and (…, 3) translation -> Transform."""
     return Transform(_tensor(rot, np.float32, device), _tensor(trans, np.float32, device))
 
 
 def range_image_from_numpy(
-    points, mask, normals, colors, intensities, intensity_map, intrinsics_dict: dict, device="cpu"
+    points, mask, normals, colors, intensities, intensity_map, intrinsics_dict: dict, device="cuda"
 ) -> RangeImage:
     """Arrays of a JAX ``RangeImage`` + ``dataclasses.asdict(intrinsics)``.
     ``normals``, ``colors``, ``intensities`` and ``intensity_map`` may be None."""
@@ -60,7 +61,7 @@ def ms_icp_params_from_dicts(levels: list[dict]) -> MsIcpParams:
     return MsIcpParams(tuple(icp_params_from_dict(d) for d in levels))
 
 
-def sorted_grid_from_numpy(planes, orig_idx, starts, cell_size, origin, dims, n, device="cpu") -> SortedGrid:
+def sorted_grid_from_numpy(planes, orig_idx, starts, cell_size, origin, dims, n, device="cuda") -> SortedGrid:
     """The arrays and static fields of a JAX ``nn_banded.SortedGrid``."""
     return SortedGrid(
         planes=_tensor(planes, np.float32, device),
@@ -73,7 +74,7 @@ def sorted_grid_from_numpy(planes, orig_idx, starts, cell_size, origin, dims, n,
     )
 
 
-def voxel_hash_grid_from_numpy(sorted_hash, sorted_points, sorted_indices, cell_size, device="cpu") -> VoxelHashGrid:
+def voxel_hash_grid_from_numpy(sorted_hash, sorted_points, sorted_indices, cell_size, device="cuda") -> VoxelHashGrid:
     """The arrays and cell size of a JAX ``voxel_hash.VoxelHashGrid``."""
     return VoxelHashGrid(
         sorted_hash=_tensor(sorted_hash, np.int32, device),

@@ -37,17 +37,36 @@
 // grid 2 x 111 x 146 x 96), against 1.2 MB of image reads.
 //
 // K3 (bilateral_slice) replaces the TPU kernel
-// align3d_tpu/ops/bilateral.py::_slice_kernel. One thread per pixel samples
-// the normalized grid's value channel trilinearly: y0/y1/ya and x0/x1/xa
-// come from the pixel's static coordinates (tables built by the wrapper with
-// the plain _slice's expressions), z0/z1/za from the pixel's depth, and the
-// thread reads the 8 corners and forms (1 - za) * pmix[z0] + za * pmix[z1]
-// with pmix the x-lerp then y-lerp, or ((1 - za) + za) * pmix[z0] when
-// z0 == z1, as the one-hot sum of _slice does. The TPU workarounds stay
-// out: the x-lerp matmul, the transposed planes, the 8-row lane-slot pack
-// and its limit of 8 image rows per grid row. What bounds it: 8 scattered
-// 4-byte reads and one 4-byte write per pixel (~11 MB at 640 x 480, served
-// mostly from L2, since the 6 MB value grid fits in the 50 MB cache).
+// align3d_tpu/ops/bilateral.py::_slice_kernel. It samples the grid's value
+// channel trilinearly at every pixel: y0/y1/ya and x0/x1/xa come from the
+// pixel's static coordinates (tables built by the wrapper with the plain
+// _slice's expressions), z0/z1/za from the pixel's depth, and the sample is
+// (1 - za) * pmix[z0] + za * pmix[z1] with pmix the x-lerp then y-lerp, or
+// ((1 - za) + za) * pmix[z0] when z0 == z1, as the one-hot sum of _slice
+// does. One source, two compile-time forms:
+// (a) a normalized grid in, the float32 sample out (_slice);
+// (b) the blurred grid as the splat and blur leave it: each corner is
+//     normalized as it is read, value / count (__fdiv_rn) where count > 0
+//     and the value otherwise, which is _normalize's rule cell for cell, and
+//     the sample is truncated (__float2int_rz) into the int32 output, the
+//     cast the filter applies (_normalize_slice). The filter paths thus
+//     write no normalized grid and run no separate cast.
+// The TPU workarounds stay out: the x-lerp matmul, the transposed planes, the
+// 8-row lane-slot pack and its limit of 8 image rows per grid row. What
+// bounds it: the bytes, each pixel's 4-byte depth read and 4-byte output
+// written, and the distinct grid cells its pixels sample (4 bytes each in
+// (a), value and count in (b)), a few MB per frame. The kernel is latency
+// bound: what counts is how many of those scattered loads are in flight. One
+// block covers (a segment of) one image row, whose y0/y1/ya are uniform
+// across it. The block reads the segment's depths with 16-B loads into
+// shared memory and writes its outputs back from there with 16-B stores; in
+// between, thread t samples the pixels t, t + T, ... (T threads), so that
+// each load, across a warp, covers 32 consecutive pixels, whose corners
+// share grid cells (the column tables are read the same way, coalesced).
+// A thread works out all its corner offsets and issues all its loads before
+// it uses any: 4 pixels (32 loads) in form (a), 1 pixel (16 loads and 8
+// divisions, which need the registers) in form (b). Grid offsets within a
+// frame are 32-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,54 +177,132 @@ bilateral_splat(const int32_t* __restrict__ images, const int32_t* __restrict__ 
   }
 }
 
-__device__ __forceinline__ float lerp_x(const float* __restrict__ row, int x0, int x1,
-                                        float xa, int gd, int z) {
-  return __fadd_rn(__fmul_rn(row[(size_t)x0 * gd + z], __fsub_rn(1.0f, xa)),
-                   __fmul_rn(row[(size_t)x1 * gd + z], xa));
-}
+// Pixels of a row segment per thread: form (a) keeps 4 pixels' 32 corner
+// loads in flight; form (b), with 16 loads and 8 divisions a pixel, runs
+// fastest at 1. Build with -DA3D_SLICE_PIXELS_A=n / -DA3D_SLICE_PIXELS_B=n to
+// change them (the comparison of align3d_torch/tools/ablate.py); the
+// library keeps 4 and 1.
+#ifndef A3D_SLICE_PIXELS_A
+#define A3D_SLICE_PIXELS_A 4
+#endif
+#ifndef A3D_SLICE_PIXELS_B
+#define A3D_SLICE_PIXELS_B 1
+#endif
+template <bool kFused>
+__host__ __device__ constexpr int slice_pixels() { return kFused ? A3D_SLICE_PIXELS_B : A3D_SLICE_PIXELS_A; }
+constexpr int kCorners = 8;      // (z0, z1) x (y0, y1) x (x0, x1)
 
+template <bool kFused, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bilateral_slice(const float* __restrict__ grids, const int32_t* __restrict__ images,
                 const int32_t* __restrict__ cmin, int h, int w, int gh, int gw, int gd,
                 float inv_sc, const int32_t* __restrict__ y0t,
                 const int32_t* __restrict__ y1t, const float* __restrict__ yat,
                 const int32_t* __restrict__ x0t, const int32_t* __restrict__ x1t,
-                const float* __restrict__ xat, float* __restrict__ outs) {
-  const size_t pix = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= (size_t)h * w) return;
-  const int r = (int)(pix / w), c = (int)(pix % w);
-  const size_t frame = blockIdx.y;
-  const float* value = grids + frame * 2 * gh * gw * gd;  // channel 0 of the frame's grid
-  const int32_t* image = images + frame * h * w;
-  float* out = outs + frame * h * w;
+                const float* __restrict__ xat, void* __restrict__ outs) {
+  // The segment's depths, then (each thread rewriting only its own slots)
+  // its outputs' bits.
+  constexpr int kSlicePixels = slice_pixels<kFused>();
+  __shared__ __align__(16) int32_t s_pix[kSlicePixels * kThreads];
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int seg = blockIdx.x * nt * kSlicePixels;  // the segment's first column
+  const int n = min(w - seg, nt * kSlicePixels);   // its pixels
+  const int r = blockIdx.y, frame = blockIdx.z;
+  const size_t row_at = ((size_t)frame * h + r) * w + seg;
+  if (kVec) {  // 16-B loads (n is a multiple of 4 here)
+    for (int i = 4 * t; i < n; i += 4 * nt)
+      *reinterpret_cast<int4*>(s_pix + i) = *reinterpret_cast<const int4*>(images + row_at + i);
+  } else {
+    for (int i = t; i < n; i += nt) s_pix[i] = images[row_at + i];
+  }
+  __syncthreads();
+
+  const int cells = gh * gw * gd;  // the wrapper keeps 2 * cells below 2^31
+  const float* value = grids + (size_t)frame * 2 * cells;  // channel 0 of the frame's grid
   const float color_min = (float)cmin[frame];
-
-  const float chan = __fadd_rn(
-      __fmul_rn(__fsub_rn((float)image[pix], color_min), inv_sc), (float)kColorPad);
-  const int z0 = clampi(__float2int_rz(chan), 0, gd - 1);
-  const int z1 = clampi(__float2int_rz(__fadd_rn(chan, 1.0f)), 0, gd - 1);
-  const float za = __fsub_rn(chan, (float)z0);
-
-  const size_t plane = (size_t)gw * gd;
-  const float* row0 = value + (size_t)y0t[r] * plane;
-  const float* row1 = value + (size_t)y1t[r] * plane;
-  const int x0 = x0t[c], x1 = x1t[c];
-  const float xa = xat[c], ya = yat[r];
+  const int plane = gw * gd;
+  const int row0 = y0t[r] * plane, row1 = y1t[r] * plane;
+  const float ya = yat[r];
   const float one_m_ya = __fsub_rn(1.0f, ya);
 
-  const float m0 = __fadd_rn(__fmul_rn(lerp_x(row0, x0, x1, xa, gd, z0), one_m_ya),
-                             __fmul_rn(lerp_x(row1, x0, x1, xa, gd, z0), ya));
-  const float one_m_za = __fsub_rn(1.0f, za);
-  float result;
-  if (z0 == z1) {
-    result = __fmul_rn(__fadd_rn(one_m_za, za), m0);
-  } else {
-    const float m1 = __fadd_rn(__fmul_rn(lerp_x(row0, x0, x1, xa, gd, z1), one_m_ya),
-                               __fmul_rn(lerp_x(row1, x0, x1, xa, gd, z1), ya));
-    result = __fadd_rn(__fmul_rn(one_m_za, m0), __fmul_rn(za, m1));
+  // Every corner's offset first, then every load, then the arithmetic.
+  int off[kSlicePixels][kCorners];
+  float xa[kSlicePixels], za[kSlicePixels];
+  bool flat[kSlicePixels];
+#pragma unroll
+  for (int k = 0; k < kSlicePixels; ++k) {
+    const int i = min(t + k * nt, n - 1);  // past the segment: a repeat, never stored
+    const int c = seg + i;
+    const float chan = __fadd_rn(
+        __fmul_rn(__fsub_rn((float)s_pix[i], color_min), inv_sc), (float)kColorPad);
+    const int z0 = clampi(__float2int_rz(chan), 0, gd - 1);
+    const int z1 = clampi(__float2int_rz(__fadd_rn(chan, 1.0f)), 0, gd - 1);
+    za[k] = __fsub_rn(chan, (float)z0);
+    flat[k] = z0 == z1;
+    xa[k] = xat[c];
+    const int a0 = x0t[c] * gd, a1 = x1t[c] * gd;
+    off[k][0] = row0 + a0 + z0, off[k][1] = row0 + a1 + z0;
+    off[k][2] = row1 + a0 + z0, off[k][3] = row1 + a1 + z0;
+    off[k][4] = row0 + a0 + z1, off[k][5] = row0 + a1 + z1;
+    off[k][6] = row1 + a0 + z1, off[k][7] = row1 + a1 + z1;
   }
-  out[pix] = result;
+  float v[kSlicePixels][kCorners], cnt[kSlicePixels][kCorners];
+#pragma unroll
+  for (int k = 0; k < kSlicePixels; ++k) {
+#pragma unroll
+    for (int j = 0; j < kCorners; ++j) {
+      v[k][j] = __ldg(value + off[k][j]);
+      if (kFused) cnt[k][j] = __ldg(value + cells + off[k][j]);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kSlicePixels; ++k) {
+    if (kFused) {
+#pragma unroll
+      for (int j = 0; j < kCorners; ++j) {
+        // An empty cell (count 0, most cells) skips the division, which is
+        // a dozen instructions and a branch.
+        if (cnt[k][j] > 0.0f) v[k][j] = __fdiv_rn(v[k][j], cnt[k][j]);
+      }
+    }
+    const float one_m_xa = __fsub_rn(1.0f, xa[k]);
+    float lx[4];  // the x-lerps of rows (y0, z0), (y1, z0), (y0, z1), (y1, z1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) lx[j] = __fadd_rn(__fmul_rn(v[k][2 * j], one_m_xa), __fmul_rn(v[k][2 * j + 1], xa[k]));
+    const float m0 = __fadd_rn(__fmul_rn(lx[0], one_m_ya), __fmul_rn(lx[1], ya));
+    const float m1 = __fadd_rn(__fmul_rn(lx[2], one_m_ya), __fmul_rn(lx[3], ya));
+    const float one_m_za = __fsub_rn(1.0f, za[k]);
+    const float res = flat[k] ? __fmul_rn(__fadd_rn(one_m_za, za[k]), m0)
+                              : __fadd_rn(__fmul_rn(one_m_za, m0), __fmul_rn(za[k], m1));
+    const int i = t + k * nt;
+    if (i < n) s_pix[i] = kFused ? __float2int_rz(res) : __float_as_int(res);
+  }
+  __syncthreads();
+
+  int32_t* out = static_cast<int32_t*>(outs) + row_at;  // int32 values, or float32 bits
+  if (kVec) {  // 16-B stores
+    for (int i = 4 * t; i < n; i += 4 * nt)
+      *reinterpret_cast<int4*>(out + i) = *reinterpret_cast<const int4*>(s_pix + i);
+  } else {
+    for (int i = t; i < n; i += nt) out[i] = s_pix[i];
+  }
 }
+
+template <bool kFused, bool kVec>
+void launch_slice(dim3 blocks, int threads, cudaStream_t stream, const void* grids, const void* images,
+                  const void* cmin, int h, int w, int gh, int gw, int gd, float inv_sc,
+                  const void* y0, const void* y1, const void* ya, const void* x0, const void* x1,
+                  const void* xa, void* out) {
+  bilateral_slice<kFused, kVec><<<blocks, threads, 0, stream>>>(
+      static_cast<const float*>(grids), static_cast<const int32_t*>(images),
+      static_cast<const int32_t*>(cmin), h, w, gh, gw, gd, inv_sc,
+      static_cast<const int32_t*>(y0), static_cast<const int32_t*>(y1),
+      static_cast<const float*>(ya), static_cast<const int32_t*>(x0),
+      static_cast<const int32_t*>(x1), static_cast<const float*>(xa), out);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -222,19 +319,24 @@ extern "C" int a3d_bilateral_splat(const void* images, const void* cmin, int bat
   return (int)cudaGetLastError();
 }
 
+// fused = 0: form (a), float32 out; fused = 1: form (b), int32 out.
 extern "C" int a3d_bilateral_slice(const void* grids, const void* images, const void* cmin,
                                    int batch, int h, int w, int gh, int gw, int gd,
                                    float inv_sc, const void* y0, const void* y1,
                                    const void* ya, const void* x0, const void* x1,
-                                   const void* xa, void* out, void* stream) {
-  const size_t pixels = (size_t)h * w;
-  const dim3 blocks((unsigned)((pixels + kThreads - 1) / kThreads), (unsigned)batch);
-  bilateral_slice<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grids), static_cast<const int32_t*>(images),
-      static_cast<const int32_t*>(cmin), h, w, gh, gw, gd, inv_sc,
-      static_cast<const int32_t*>(y0), static_cast<const int32_t*>(y1),
-      static_cast<const float*>(ya), static_cast<const int32_t*>(x0),
-      static_cast<const int32_t*>(x1), static_cast<const float*>(xa),
-      static_cast<float*>(out));
+                                   const void* xa, int fused, void* out, void* stream) {
+  const int pixels = fused ? slice_pixels<true>() : slice_pixels<false>();
+  const int groups = (w + pixels - 1) / pixels;  // threads a row needs
+  const int threads = min(kThreads, (groups + 31) / 32 * 32);
+  const dim3 blocks((unsigned)((groups + threads - 1) / threads), (unsigned)h, (unsigned)batch);
+  const bool vec = w % 4 == 0 && aligned16(images) && aligned16(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fused) {
+    (vec ? launch_slice<true, true> : launch_slice<true, false>)(
+        blocks, threads, s, grids, images, cmin, h, w, gh, gw, gd, inv_sc, y0, y1, ya, x0, x1, xa, out);
+  } else {
+    (vec ? launch_slice<false, true> : launch_slice<false, false>)(
+        blocks, threads, s, grids, images, cmin, h, w, gh, gw, gd, inv_sc, y0, y1, ya, x0, x1, xa, out);
+  }
   return (int)cudaGetLastError();
 }

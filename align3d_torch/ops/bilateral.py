@@ -12,8 +12,13 @@ package's layout. Every stage takes a leading frame axis: images are
 ``depth_limit`` are a Python int or a tensor with the images' leading shape.
 One frame is the batch of one; the batch runs through one splat launch and
 one slice launch (``csrc/bilateral.cu``) on a CUDA tensor, and through their
-plain twins on a CPU tensor. The blur and the normalization are elementwise,
-so a frame's output is the same bits in any batch. The spatial
+plain twins on a CPU tensor. The filter's slice is the kernel's form (b),
+:func:`_normalize_slice`: it normalizes each grid corner as it reads it and
+writes the depth type, so the filter writes no normalized grid and runs no
+separate cast; :meth:`BilateralGrid.normalize` and :meth:`BilateralGrid.slice`
+(form (a), :func:`_slice`) stay for callers who want the normalized grid or
+the float sample. The blur and the normalization are elementwise, so a
+frame's output is the same bits in any batch. The spatial
 grid<->image maps depend only on pixel positions, so they are numpy tables
 copied to the device once per shape and device; only the range coordinate
 depends on the data.
@@ -46,9 +51,13 @@ from align3d_torch import _kernels
 _SPACE_PAD = 2
 _COLOR_PAD = 2
 
-#: Launches of the CUDA splat and slice kernels (set to 0 to reset).
+#: Launches of the CUDA splat kernel, of the slice kernel's form (a) and of
+#: its form (b) (set to 0 to reset).
 SPLAT_LAUNCHES = 0
 SLICE_LAUNCHES = 0
+NORMALIZE_SLICE_LAUNCHES = 0
+#: Calls of :func:`_normalize`, each a pass over whole grids (set to 0 to reset).
+NORMALIZE_PASSES = 0
 
 
 def _splat_window(n_src: int, n_dst: int, inv_ss: float, pad: int) -> tuple[np.ndarray, np.ndarray]:
@@ -243,6 +252,8 @@ def _blur(grid: torch.Tensor, depth_limit) -> torch.Tensor:
 
 def _normalize(grid: torch.Tensor) -> torch.Tensor:
     """value /= count and count -> 1 where count > 0 (grid.rs:90-104)."""
+    global NORMALIZE_PASSES
+    NORMALIZE_PASSES += 1
     val, cnt = grid[..., 0, :, :, :], grid[..., 1, :, :, :]
     has = cnt > 0
     val = torch.where(has, val / torch.where(has, cnt, 1.0), val)
@@ -296,36 +307,68 @@ def _slice_plain(grid, image, color_min, sigma_space: float, sigma_color: float)
     return out.reshape(image.shape)
 
 
+def _normalize_slice_plain(grid, image, color_min, sigma_space: float, sigma_color: float) -> torch.Tensor:
+    """The plain twin of the slice kernel's form (b): ``_normalize``, the
+    float sample of :func:`_slice_plain`, then the cast to the image's type."""
+    return _slice_plain(_normalize(grid), image, color_min, sigma_space, sigma_color).to(image.dtype)
+
+
 def _slice(grid, image, color_min, sigma_space: float, sigma_color: float) -> torch.Tensor:
     """Sample normalized (..., 2, gh, gw, gd) grids back at every pixel of
-    their (..., H, W) images -> (..., H, W) float32: one kernel launch."""
+    their (..., H, W) images -> (..., H, W) float32: one launch of the slice
+    kernel's form (a)."""
     if image.device.type == "cpu":
         return _slice_plain(grid, image, color_min, sigma_space, sigma_color)
+    global SLICE_LAUNCHES
+    out = _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=False)
+    SLICE_LAUNCHES += 1
+    return out
+
+
+def _normalize_slice(grid, image, color_min, sigma_space: float, sigma_color: float) -> torch.Tensor:
+    """``_slice(_normalize(grid), ...).to(image.dtype)`` bit for bit, from the
+    blurred, un-normalized (..., 2, gh, gw, gd) grids: one launch of the
+    slice kernel's form (b), which normalizes each corner it reads and
+    writes the (..., H, W) int32 output directly."""
+    if image.device.type == "cpu":
+        return _normalize_slice_plain(grid, image, color_min, sigma_space, sigma_color)
+    global NORMALIZE_SLICE_LAUNCHES
+    out = _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=True)
+    NORMALIZE_SLICE_LAUNCHES += 1
+    return out
+
+
+def _slice_launch(grid, image, color_min, sigma_space: float, sigma_color: float, fused: bool,
+                  entry=None) -> torch.Tensor:
+    """One launch of the slice kernel on CUDA tensors: form (b) (int32 out)
+    with ``fused``, else form (a) (float32 out). ``entry``: the C entry point
+    ``a3d_bilateral_slice`` of another build of ``csrc/bilateral.cu`` than
+    the library's."""
     if image.device.type != "cuda":
-        raise ValueError(f"_slice runs on cuda or cpu tensors, got {image.device}")
+        raise ValueError(f"the slice runs on cuda or cpu tensors, got {image.device}")
     if image.dtype != torch.int32 or image.ndim < 2 or not image.is_contiguous():
-        raise ValueError("_slice takes contiguous (..., H, W) int32 depth images")
+        raise ValueError("the slice takes contiguous (..., H, W) int32 depth images")
     if (grid.dtype != torch.float32 or grid.shape[:-4] != image.shape[:-2] or grid.ndim != image.ndim + 2
             or grid.shape[-4] != 2 or not grid.is_contiguous()):
-        raise ValueError("_slice takes contiguous (..., 2, gh, gw, gd) float32 grids, one per image")
+        raise ValueError("the slice takes contiguous (..., 2, gh, gw, gd) float32 grids, one per image")
     if grid.device != image.device:
         raise ValueError(f"grid on {grid.device}, image on {image.device}")
-
-    global SLICE_LAUNCHES
-    frames, cmin = _frames(image, color_min)
     gh, gw, gd = grid.shape[-3:]
+    if 2 * gh * gw * gd >= 2**31:
+        raise ValueError(f"a grid of 2 x {gh} x {gw} x {gd} cells is too large for the slice's 32-bit indices")
+
+    frames, cmin = _frames(image, color_min)
     bsz, h, w = frames.shape
     tables = _slice_tables(h, w, gh, gw, sigma_space, image.device)
-    out = torch.empty(image.shape, dtype=torch.float32, device=image.device)
-    status = _kernels.lib().a3d_bilateral_slice(
+    out = torch.empty(image.shape, dtype=torch.int32 if fused else torch.float32, device=image.device)
+    status = (entry or _kernels.lib().a3d_bilateral_slice)(
         grid.data_ptr(), frames.data_ptr(), cmin.data_ptr(), bsz, h, w, gh, gw, gd,
         float(np.float32(1.0 / sigma_color)),
         *(t.data_ptr() for t in tables),
-        out.data_ptr(),
+        int(fused), out.data_ptr(),
         ctypes.c_void_p(torch.cuda.current_stream(image.device).cuda_stream),
     )
     _kernels.check(status, "a3d_bilateral_slice")
-    SLICE_LAUNCHES += 1
     return out
 
 
@@ -407,10 +450,15 @@ class BilateralGrid:
         return dataclasses.replace(self, data_cm=_normalize(self.data_cm))
 
     def slice(self, image: torch.Tensor) -> torch.Tensor:
-        """Sample back to image space; truncates to the image's integer type
-        like the reference's ``num::cast``."""
+        """Sample a normalized grid back to image space; truncates to the
+        image's integer type like the reference's ``num::cast``."""
         value = _slice(self.data_cm, image, self.color_min, self.sigma_space, self.sigma_color)
         return value.to(image.dtype)
+
+    def normalize_slice(self, image: torch.Tensor) -> torch.Tensor:
+        """``normalize().slice(image)``, the same bits, in one pass that
+        writes no normalized grid (the slice kernel's form (b))."""
+        return _normalize_slice(self.data_cm, image, self.color_min, self.sigma_space, self.sigma_color)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,7 +473,7 @@ class BilateralFilter:
         """Filter an (H, W) int32 depth image on its device, its grid sized
         from its own span (``color_min`` counts holes)."""
         grid = BilateralGrid.from_image(image, self.sigma_space, self.sigma_color, self.pad_depth_to)
-        return grid.convolve().normalize().slice(image)
+        return grid.convolve().normalize_slice(image)
 
     def filter_static(self, image: torch.Tensor, color_min, grid_depth: int, depth_limit=None) -> torch.Tensor:
         """:meth:`filter` of one (H, W) frame at a caller-fixed grid depth and
@@ -443,7 +491,7 @@ class BilateralFilter:
         grid = BilateralGrid.from_image_static(
             images, color_min, grid_depth, self.sigma_space, self.sigma_color, depth_limit
         )
-        return grid.convolve().normalize().slice(images)
+        return grid.convolve().normalize_slice(images)
 
     def filter_static_buckets(self, images: torch.Tensor, color_min: torch.Tensor, plan) -> torch.Tensor:
         """(B, H, W) frames whose depth spans differ, through the grid-depth

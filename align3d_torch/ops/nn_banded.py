@@ -229,6 +229,8 @@ def band_search(
     _kernels.check_tensor(planes, "planes", (tiles, NPLANES, 128), torch.float32, dev)
     _kernels.check_tensor(queries, "queries", (3, qp), torch.float32, dev)
     _kernels.check_tensor(bstarts, "bstarts", (nblocks * NBANDS,), torch.int32, dev)
+    if planes.data_ptr() % 16:
+        raise ValueError("planes must start on a 16-byte boundary (the kernel stages tiles with 16-byte copies)")
 
     score = torch.empty(qp, dtype=torch.float32, device=dev)
     pos = torch.empty(qp, dtype=torch.int32, device=dev)

@@ -4,7 +4,7 @@
 
 Needs a CUDA device and ``nvcc`` (found as the kernel build finds it) and
 fails without them. Prints one JSON line with the card's name and power
-limit and two comparisons, each made in this one process, so that their
+limit and four comparisons, each made in this one process, so that their
 times compare:
 
 * **K2's exact path** (``splat_exact``). ``csrc/bilateral.cu`` is built
@@ -18,6 +18,19 @@ times compare:
   ``pack_intensity_taps`` over the 64 target maps of the throughput series
   at each pyramid level, the packs the 64-pair step built before K1 read
   its taps from the map.
+* **The slice composition K3's form (b) replaces** (``slice_composition``):
+  on the filter paths the blurred grid went through ``_normalize``, K3's
+  form (a) and a cast to int32; form (b) does all three in one launch. Each
+  part, the three as one call, and form (b) are timed on the same blurred
+  grids, at one sample1 frame (the odometry path, gd 96) and at the 65
+  frames of the throughput series (gd 131), form (b) before and after the
+  composition; form (b) is held bitwise against the composition.
+* **K3's pixels per thread** (``slice_pixels``). ``csrc/bilateral.cu`` is
+  built with 1, 2 and 4 pixels a thread in both forms
+  (``-DA3D_SLICE_PIXELS_A`` / ``_B``; the library keeps 4 for form (a) and
+  1 for form (b)); each build's two forms are held bitwise against their
+  plain twins and timed at one sample1 frame and at 65 frames, in the order
+  4, 1, 2, 2, 1, 4.
 
 Each time is given twice: device ms per call from ``torch.profiler``
 (``tools/roofline.py::device_ms``), and ms per call of back-to-back calls
@@ -40,19 +53,29 @@ BUILD = _kernels.BUILD_DIR.parent / "ablate"
 CALLS = {"frame": 50, "series": 10}  # calls per timing at each shape
 
 
-def build_splat(exact: int):
-    """K2's C entry point from ``bilateral.cu`` built with A3D_SPLAT_EXACT=exact."""
+def build_bilateral(variants: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
+    """``bilateral.cu`` built once per variant, each with its -D macros, all
+    ``nvcc`` started together; name -> the loaded library, its splat and
+    slice entry points typed."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    out = BUILD / f"libsplat_exact{exact}.so"
-    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", f"-DA3D_SPLAT_EXACT={exact}",
-           "-o", str(out), str(_kernels._CSRC / "bilateral.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).a3d_bilateral_splat
-    fn.argtypes = _kernels._SIGNATURES["a3d_bilateral_splat"]
-    fn.restype = ctypes.c_int
-    return fn
+    jobs = {}
+    for name, defines in variants.items():
+        out = BUILD / f"libbilateral_{name}.so"
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", *(f"-D{k}={v}" for k, v in defines.items()),
+               "-o", str(out), str(_kernels._CSRC / "bilateral.cu")]
+        jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (out, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{stdout}\n{stderr}")
+        lib = ctypes.CDLL(str(out))
+        for entry in ("a3d_bilateral_splat", "a3d_bilateral_slice"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _kernels._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
 
 
 def splat_with(fn, frames: torch.Tensor, cmin: torch.Tensor, grid_shape, sigma_space: float,
@@ -80,7 +103,8 @@ def splat_exact(device) -> dict:
     gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(smin.tolist(), smax.tolist()))
     shapes = {"frame": (one, one_min.reshape(1), one_shape),
               "series": (series, smin, (*bil._grid_dims(*series.shape[-2:], filt.sigma_space), gd))}
-    variants = {"exact": build_splat(1), "ordered": build_splat(0)}
+    libs = build_bilateral({"exact": {"A3D_SPLAT_EXACT": 1}, "ordered": {"A3D_SPLAT_EXACT": 0}})
+    variants = {name: lib.a3d_bilateral_splat for name, lib in libs.items()}
     out = {}
     for label, (frames, cmin, shape) in shapes.items():
         args = (frames, cmin, shape, filt.sigma_space, filt.sigma_color)
@@ -118,6 +142,88 @@ def tap_packs(device) -> dict:
             "bytes_written_by_level": [m.shape[0] * (m.shape[1] - 2) * (m.shape[2] - 2) * 12 * 4 for m in maps]}
 
 
+def slice_composition(device) -> dict:
+    """Device ms of ``_normalize``, K3's form (a) and the cast, alone and as
+    one call, against K3's form (b), at one frame and at 65 frames."""
+    from align3d_torch.ops import bilateral as bil
+    from align3d_torch.tools.roofline import device_ms, time_ms
+    from align3d_torch.tools.series import real_frames
+
+    filt = bil.BilateralFilter()
+    real = real_frames()
+    series = torch.from_numpy(real.depths.astype(np.int32)).to(device)
+    one = series[0].contiguous()
+    grid = bil.BilateralGrid.from_image(one, filt.sigma_space, filt.sigma_color, filt.pad_depth_to).convolve()
+    smin, smax = bil.nonzero_min_max(series)
+    gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(smin.tolist(), smax.tolist()))
+    shape = (*bil._grid_dims(*series.shape[-2:], filt.sigma_space), gd)
+    blurred = bil._blur(bil._splat(series, smin, shape, filt.sigma_space, filt.sigma_color), gd)
+    shapes = {"frame": (grid.data_cm, one, grid.color_min), "series": (blurred, series, smin)}
+    out = {}
+    for label, (grids, images, cmin) in shapes.items():
+        args = (images, cmin, filt.sigma_space, filt.sigma_color)
+        norm = bil._normalize(grids)
+        sliced = bil._slice(norm, *args)
+        calls = {
+            "normalize": (lambda: bil._normalize(grids), None),
+            "slice_a": (lambda: bil._slice(norm, *args), "bilateral_slice"),
+            "cast": (lambda: sliced.to(torch.int32), None),
+            "composition": (lambda: bil._slice(bil._normalize(grids), *args).to(torch.int32), None),
+        }
+        fused = (lambda: bil._normalize_slice(grids, *args), "bilateral_slice")
+        row = {"frames": images.reshape(-1, *images.shape[-2:]).shape[0], "grid": list(grids.shape[-4:]),
+               "bitwise": torch.equal(fused[0](), sliced.to(torch.int32))}
+        for name, (fn, kernel) in (("fused", fused), *calls.items(), ("fused", fused)):
+            row.setdefault(f"{name}_ms", []).append(device_ms(fn, CALLS[label], kernel)[0])
+            row.setdefault(f"{name}_event_ms", []).append(time_ms(fn, reps=CALLS[label]))
+        if not row["bitwise"]:
+            raise AssertionError(f"K3's form (b) differs from the composition at the {label} shape")
+        out[label] = row
+        del norm, sliced
+    return out
+
+
+def slice_pixels(device) -> dict:
+    """K3 built with 1, 2 and 4 pixels a thread: both forms at one frame and
+    at 65 frames, bitwise against their twins."""
+    from align3d_torch.ops import bilateral as bil
+    from align3d_torch.tools.roofline import device_ms
+    from align3d_torch.tools.series import real_frames
+
+    filt = bil.BilateralFilter()
+    real = real_frames()
+    series = torch.from_numpy(real.depths.astype(np.int32)).to(device)
+    one = series[0].contiguous()
+    grid = bil.BilateralGrid.from_image(one, filt.sigma_space, filt.sigma_color, filt.pad_depth_to).convolve()
+    smin, smax = bil.nonzero_min_max(series)
+    gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(smin.tolist(), smax.tolist()))
+    shape = (*bil._grid_dims(*series.shape[-2:], filt.sigma_space), gd)
+    blurred = bil._blur(bil._splat(series, smin, shape, filt.sigma_space, filt.sigma_color), gd)
+    libs = build_bilateral({f"pixels{p}": {"A3D_SLICE_PIXELS_A": p, "A3D_SLICE_PIXELS_B": p} for p in (1, 2, 4)})
+    out = {}
+    for label, (grids, images, cmin) in {"frame": (grid.data_cm, one, grid.color_min),
+                                         "series": (blurred, series, smin)}.items():
+        args = (images, cmin, filt.sigma_space, filt.sigma_color)
+        norm = bil._normalize(grids)
+        forms = {"a": (norm, False), "b": (grids, True)}
+        refs = {"a": bil._slice_plain(norm, *args), "b": bil._normalize_slice_plain(grids, *args)}
+        row = {}
+        for name in ("pixels4", "pixels1", "pixels2", "pixels2", "pixels1", "pixels4"):
+            entry = libs[name].a3d_bilateral_slice
+            for form, (g, fused) in forms.items():
+                def call(g=g, fused=fused):
+                    return bil._slice_launch(g, *args, fused=fused, entry=entry)
+
+                key = f"{name}_{form}"
+                row.setdefault(f"{key}_bitwise", torch.equal(call(), refs[form]))
+                row.setdefault(f"{key}_ms", []).append(device_ms(call, CALLS[label], "bilateral_slice")[0])
+        if not all(v for k, v in row.items() if k.endswith("_bitwise")):
+            raise AssertionError(f"a K3 build differs from its plain twin at the {label} shape")
+        out[label] = row
+        del norm, refs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: the ablation tool needs a CUDA device", file=sys.stderr)
@@ -125,7 +231,9 @@ def main() -> int:
     from align3d_torch.tools.roofline import card
 
     device = torch.device("cuda")
-    print(json.dumps({"ablate": {"card": card(), "splat_exact": splat_exact(device), "tap_packs": tap_packs(device)}}))
+    print(json.dumps({"ablate": {"card": card(), "splat_exact": splat_exact(device), "tap_packs": tap_packs(device),
+                                 "slice_composition": slice_composition(device),
+                                 "slice_pixels": slice_pixels(device)}}))
     return 0
 
 

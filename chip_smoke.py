@@ -7,26 +7,32 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
-   the ``-Xptxas -v`` report (registers, shared memory, spills) of K1 and K2.
+   the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
+   K3 (its four instantiations) and K4.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
    ``torch.profiler`` (for K1-K3 checked to be one launch of the kernel a
    call and nothing else, as the paths call them), and per-call time of
    back-to-back calls between one CUDA event pair. K1-K3: sample1 frames 0 and 1, 640x480, the three
-   pyramid levels, the (2, 111, 146, 96) bilateral grid. K4: payload mode
+   pyramid levels, the (2, 111, 146, 96) bilateral grid; K3 in both forms,
+   (b) on the blurred grid (normalize and cast folded in, bitwise against
+   ``_normalize_slice_plain``) as the filter paths call it, (a) on the
+   normalized grid as before. K4: payload mode
    on the sample1 frame-0 grid (270,213 points, cell 0.05, band 512) with
    frame 1's 270,282 points as queries; nearest mode at 500k x 500k
    uniform, cell 0.02, bands 256 and 512. K5: the 204,800-face grid mesh
    and the teapot. P1 and P2, the roofline probes, against their twins at
    the sizes the roofline tool measures them (P1 relative, P2 bitwise). K2
-   and K3 over the 65 sample1 frames of the throughput series in one launch
-   each, bitwise against 65 single-frame launches, K2 bitwise against its
-   plain twin, and their library yardsticks (``index_add_``, ``grid_sample``)
-   at that shape; K2 over each deep bucket of the mixed series at the
-   bucket's depth, bitwise against its plain twin; K3 over the 29 sample2
-   frames of the mixed series (gd > 128) against its plain twin.
+   and K3 (both forms) over the 65 sample1 frames of the throughput series
+   in one launch each, bitwise against 65 single-frame launches and against
+   their plain twins, and their library yardsticks (``index_add_``,
+   ``grid_sample``) at that shape; K2 over each deep bucket of the mixed
+   series at the bucket's depth, bitwise against its plain twin; K3 (both
+   forms) over the 29 sample2 frames of the mixed series (gd > 128) against
+   its plain twins.
 4. Drive each path with its kernels' launch counts reset just before and
-   read just after:
+   read just after; the filter paths (4a, 4d) must slice through K3's form
+   (b) only, with no launch of form (a) and no ``_normalize`` pass:
    a. odometry: ``run_odometry`` on sample1, 10 frames, bilateral filter on;
       the trajectory error against ground truth, the poses against the JAX
       package's golden trajectory, a bitwise-identical second run;
@@ -86,8 +92,8 @@ DEVICE = "cuda"
 
 # Tolerances. K2 is held bitwise: every product has a 0/1 factor and the sums
 # run in the plain twin's order.
-SLICE_ATOL = 2e-3  # K3 before the cast (tests/test_bilateral.py's kernel bound)
-SLICE_CAST_MAX = 1  # K3 after the truncating cast
+SLICE_ATOL = 2e-3  # K3's form (a) before the cast (tests/test_bilateral.py's kernel bound) ...
+SLICE_CAST_MAX = 1  # ... and after the truncating cast; form (b) is held bitwise
 ICP_COUNT_SHARE = 1e-4  # K1: count within 0.01% of the valid pixels
 ICP_REL = 1e-4  # K1: H and g within 1e-4 x max|entry|
 K1_TWIST = [0.004, -0.002, 0.003, 0.002, -0.003, 0.001]  # the pose K1 is held against its twin at
@@ -111,8 +117,10 @@ TIMED_CALLS = 50  # calls per timing, back to back
 TIMED_PLAIN_NN = 5  # calls per timing of the K4 twin, which takes ~0.1 s a call ...
 PROFILED_PLAIN_NN = 1  # ... and ~40k profiler events per call
 PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
-#: Kernel names in csrc/, by the wrapper that launches them.
+#: Kernel names in csrc/, by the wrapper that launches them (K3's two forms
+#: are instantiations of one template).
 KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",)}
+PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded"}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -230,23 +238,39 @@ def library_splat(torch, bil, depth, cmin, shape, filt, kernel_out, n: int = TIM
 
 
 def check_slice(torch, bil, depth):
+    """K3 at one sample1 frame: form (b) on the blurred grid, bitwise against
+    its twin, as the filter calls it; form (a) on the normalized grid as
+    before. Returns form (b)'s entry and form (a)'s."""
     filt = bil.BilateralFilter()
-    grid = bil.BilateralGrid.from_image(depth, filt.sigma_space, filt.sigma_color, filt.pad_depth_to)
-    grid = grid.convolve().normalize()
+    blurred = bil.BilateralGrid.from_image(depth, filt.sigma_space, filt.sigma_color, filt.pad_depth_to).convolve()
+    grid = blurred.normalize()
     args = (grid.data_cm, depth, grid.color_min, filt.sigma_space, filt.sigma_color)
     got, ref = bil._slice(*args), bil._slice_plain(*args)
+    fargs = (blurred.data_cm, depth, blurred.color_min, filt.sigma_space, filt.sigma_color)
+    fused, fused_ref = bil._normalize_slice(*fargs), bil._normalize_slice_plain(*fargs)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     cast_err = int((got.to(torch.int32) - ref.to(torch.int32)).abs().max())
-    print(f"K3 slice: max|kernel - plain| = {err} before the cast, {cast_err} after")
+    fused_err = int((fused - fused_ref).abs().max())
+    fused_same = torch.equal(fused, fused_ref) and torch.equal(fused, got.to(torch.int32))
+    print(f"K3 slice, form (a): max|kernel - plain| = {err} before the cast, {cast_err} after, "
+          f"bitwise = {torch.equal(got, ref)}; form (b): max|kernel - plain| = {fused_err}, bitwise against its "
+          f"twin and against form (a) + the cast = {fused_same}")
     if not (err <= SLICE_ATOL and cast_err <= SLICE_CAST_MAX):
-        raise AssertionError("K3 slice differs from its plain twin")
+        raise AssertionError("K3's form (a) differs from its plain twin")
+    if not fused_same:
+        raise AssertionError("K3's form (b) differs from its plain twin")
     lib = library_slice(torch, grid.data_cm, depth, grid.color_min, filt, got)
-    # Bytes: the grid cells sampled, the image and the output once; ~30 flops a pixel.
     cells = sampled_cells(torch, bil, depth, grid.color_min, *grid.data_cm.shape[1:], filt)
-    b = bound(cells * 4 + depth.numel() * 8, depth.numel() * 30)
-    return (err, timings(torch, lambda: bil._slice(*args), kernel=KERNEL_NAMES["slice"][0]),
-            timings(torch, lambda: bil._slice_plain(*args)), b, lib)
+    # Bytes: the grid cells sampled (form (a): the value; (b): value and
+    # count), the image and the output once; ~30 flops a pixel.
+    form_a = (err, timings(torch, lambda: bil._slice(*args), kernel=KERNEL_NAMES["slice"][0]),
+              timings(torch, lambda: bil._slice_plain(*args)), bound(cells * 4 + depth.numel() * 8, depth.numel() * 30),
+              lib)
+    form_b = (fused_err, timings(torch, lambda: bil._normalize_slice(*fargs), kernel=KERNEL_NAMES["slice"][0]),
+              timings(torch, lambda: bil._normalize_slice_plain(*fargs)),
+              bound(cells * 8 + depth.numel() * 8, depth.numel() * 30), lib)
+    return form_b, form_a
 
 
 def sampled_cells(torch, bil, images, color_min, gh, gw, gd, filt) -> int:
@@ -643,10 +667,11 @@ def check_probes(torch, rl) -> dict:
 
 
 def check_batched_bilateral(torch, bil, real, mixed) -> dict:
-    """K2 and K3 over the 65 sample1 frames of the throughput series, one
-    launch each, bitwise against 65 single-frame launches, and K2 bitwise
-    against its plain twin; K2 (bitwise) and K3 over the sample2 frames of
-    the mixed series (gd > 128) against their plain twins."""
+    """K2 and K3 (both forms) over the 65 sample1 frames of the throughput
+    series, one launch each, bitwise against 65 single-frame launches, K2
+    and K3's form (b) bitwise against their plain twins; K2 (bitwise) and K3
+    (form (b) bitwise) over the sample2 frames of the mixed series (gd >
+    128) against their plain twins."""
     from align3d_torch.tools.roofline import time_ms
     from align3d_torch.tools.series import bucket_plan
 
@@ -661,33 +686,45 @@ def check_batched_bilateral(torch, bil, real, mixed) -> dict:
     splat_plain, splat_err = torch.equal(grids, ref), float((grids - ref).abs().max())
     del ref
     splat_lib = library_splat(torch, bil, depths, cmin, (gh, gw, gd), filt, grids, n=10)
-    norm = bil._normalize(bil._blur(grids, gd))
+    blurred = bil._blur(grids, gd)
+    norm = bil._normalize(blurred)
     slice_args = (norm, depths, cmin, filt.sigma_space, filt.sigma_color)
     sliced = bil._slice(*slice_args)
     slice_err = float((sliced - bil._slice_plain(*slice_args)).abs().max())
     slice_lib = library_slice(torch, norm, depths, cmin, filt, sliced, n=10)
+    fused_args = (blurred, depths, cmin, filt.sigma_space, filt.sigma_color)
+    fused = bil._normalize_slice(*fused_args)
+    fused_err = int((fused - bil._normalize_slice_plain(*fused_args)).abs().max())
+    fused_same = fused_err == 0 and torch.equal(fused, sliced.to(torch.int32))
     # The twins at this shape, CUDA events around one call each.
     splat_plain_ms = time_ms(lambda: bil._splat_plain(*splat_args), reps=1, warmup=0)
     slice_plain_ms = time_ms(lambda: bil._slice_plain(*slice_args), reps=1, warmup=0)
+    fused_plain_ms = time_ms(lambda: bil._normalize_slice_plain(*fused_args), reps=1, warmup=0)
     same_splat = all(torch.equal(bil._splat(depths[b], int(cmin[b]), (gh, gw, gd), filt.sigma_space,
                                             filt.sigma_color), grids[b]) for b in range(len(depths)))
     same_slice = all(torch.equal(bil._slice(norm[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space,
                                             filt.sigma_color), sliced[b]) for b in range(len(depths)))
+    same_fused = all(torch.equal(bil._normalize_slice(blurred[b].contiguous(), depths[b], int(cmin[b]),
+                                                      filt.sigma_space, filt.sigma_color), fused[b])
+                     for b in range(len(depths)))
     splat_ms, splat_call_ms = timings(torch, lambda: bil._splat(*splat_args), n=10, kernel=KERNEL_NAMES["splat"][0])
     slice_ms, slice_call_ms = timings(torch, lambda: bil._slice(*slice_args), n=10, kernel=KERNEL_NAMES["slice"][0])
+    fused_ms, fused_call_ms = timings(torch, lambda: bil._normalize_slice(*fused_args), n=10,
+                                      kernel=KERNEL_NAMES["slice"][0])
     cells = sampled_cells(torch, bil, depths, cmin, gh, gw, gd, filt)
     # At this size a call outlasts its dispatch, so the CUDA-event time per
     # call of back-to-back calls checks the profiler's device time.
     print(f"K2/K3 over {len(depths)} frames, grid (2, {gh}, {gw}, {gd}): bitwise against single-frame launches: "
-          f"splat {same_splat}, slice {same_slice}; against the plain twins: K2 bitwise {splat_plain}, "
-          f"K3 max |kernel - plain| {slice_err}; device ms per launch (profiler / CUDA events) "
-          f"{splat_ms} / {splat_call_ms} and {slice_ms} / {slice_call_ms}, "
-          f"twins {splat_plain_ms} / {slice_plain_ms}; index_add_ {splat_lib['library_ms']} / "
+          f"splat {same_splat}, slice (a) {same_slice}, (b) {same_fused}; against the plain twins: K2 bitwise "
+          f"{splat_plain}, K3 (a) max |kernel - plain| {slice_err}, (b) {fused_err} (bitwise (a) + the cast: "
+          f"{fused_same}); device ms per launch (profiler / CUDA events) {splat_ms} / {splat_call_ms}, "
+          f"(a) {slice_ms} / {slice_call_ms}, (b) {fused_ms} / {fused_call_ms}; "
+          f"twins {splat_plain_ms} / {slice_plain_ms} / {fused_plain_ms}; index_add_ {splat_lib['library_ms']} / "
           f"{splat_lib['library_call_ms']} (max rel diff {splat_lib['library_max_rel_diff']}), grid_sample "
           f"{slice_lib['library_ms']} / {slice_lib['library_call_ms']} (max diff {slice_lib['library_max_abs_diff']})")
-    if not (same_splat and same_slice and splat_plain and slice_err <= SLICE_ATOL):
+    if not (same_splat and same_slice and same_fused and splat_plain and fused_same and slice_err <= SLICE_ATOL):
         raise AssertionError("batched K2/K3 differ from single-frame launches or from their plain twins")
-    del grids, norm, sliced
+    del grids, blurred, norm, sliced, fused
 
     pick = [i for i, (name, _) in enumerate(mixed.frames) if name == "sample2"]
     deep = torch.from_numpy(mixed.depths[pick].astype("int32")).to(DEVICE)
@@ -704,19 +741,25 @@ def check_batched_bilateral(torch, bil, real, mixed) -> dict:
             args = (mdepths[sub], mmin[sub], (gh, gw, g), filt.sigma_space, filt.sigma_color)
             deep_buckets[g] = (len(idx), torch.equal(bil._splat(*args), bil._splat_plain(*args)))
     del mdepths
-    dnorm = bil._normalize(bil._blur(bil._splat(deep, dmin, (gh, gw, dgd), filt.sigma_space, filt.sigma_color),
-                                     dgd))
+    dblur = bil._blur(bil._splat(deep, dmin, (gh, gw, dgd), filt.sigma_space, filt.sigma_color), dgd)
+    dargs = (dblur, deep, dmin, filt.sigma_space, filt.sigma_color)
+    deep_fused = torch.equal(bil._normalize_slice(*dargs), bil._normalize_slice_plain(*dargs))
+    dnorm = bil._normalize(dblur)
+    del dblur, dargs
     got = bil._slice(dnorm, deep, dmin, filt.sigma_space, filt.sigma_color)
     ref = bil._slice_plain(dnorm, deep, dmin, filt.sigma_space, filt.sigma_color)
     err = float((got - ref).abs().max())
     print("K2 over the mixed series' deep buckets, bitwise against its plain twin: "
           + ", ".join(f"gd {g} x {n} frames {same}" for g, (n, same) in deep_buckets.items())
-          + f"; K3 over {len(deep)} sample2 frames at gd {dgd}: max |kernel - plain| {err}")
+          + f"; K3 over {len(deep)} sample2 frames at gd {dgd}: form (a) max |kernel - plain| {err}, "
+          f"form (b) bitwise {deep_fused}")
     if not (deep_buckets and all(same for _, same in deep_buckets.values())):
         raise AssertionError("K2 over the mixed series' deep buckets differs from its plain twin")
-    if not (dgd > 128 and len(deep) >= 3 and err <= SLICE_ATOL):
+    if not (dgd > 128 and len(deep) >= 3 and err <= SLICE_ATOL and deep_fused):
         raise AssertionError("K3 at B >= 3, gd > 128 differs from its plain twin")
     return {"batch": len(depths), "gd": gd, "splat_ms": splat_ms, "slice_ms": slice_ms, "slice_cells": cells,
+            "fused_ms": fused_ms, "fused_call_ms": fused_call_ms, "fused_plain_ms": fused_plain_ms,
+            "fused_max_abs_err": fused_err, "deep_fused_bitwise_plain": deep_fused,
             "splat_call_ms": splat_call_ms, "slice_call_ms": slice_call_ms,
             "splat_plain_ms": splat_plain_ms, "slice_plain_ms": slice_plain_ms, "slice_max_abs_err": slice_err,
             "splat_max_abs_err": splat_err,
@@ -778,7 +821,8 @@ def throughput_path(torch, real, mixed, counters) -> dict:
         torch.cuda.synchronize()
         launches = read()
         plan = bucket_plan(real.depths, filt)
-        want = {"icp": STEP_ITERATIONS, "splat": len(plan) if f else 0, "slice": len(plan) if f else 0}
+        want = {"icp": STEP_ITERATIONS, "splat": len(plan) if f else 0, "slice": len(plan) if f else 0,
+                "slice_a": 0, "normalize": 0}
         print(f"throughput path, bilateral {label}: launches {launches} (expected {want}; buckets "
               + ", ".join(f"{g}x{len(i)}" for g, i, _ in plan) + ")")
         if any(launches[k] != v for k, v in want.items()):
@@ -871,7 +915,7 @@ def throughput_path(torch, real, mixed, counters) -> dict:
                     "max_deg": float(ang[true].max()), "max_trans": float(tr[true].max())}
     print(f"  mixed series: {out['mixed']}")
     if not (len(plan) >= 2 and per_frame and mlaunch["icp"] == STEP_ITERATIONS
-            and mlaunch["splat"] == mlaunch["slice"] == len(plan)
+            and mlaunch["splat"] == mlaunch["slice"] == len(plan) and mlaunch["slice_a"] == mlaunch["normalize"] == 0
             and out["mixed"]["mean_deg"] < MEAN_ANGLE_DEG and out["mixed"]["mean_trans"] < MEAN_TRANS):
         raise AssertionError("the mixed series failed its checks")
     return out
@@ -953,9 +997,9 @@ def main() -> int:
     _kernels.build(verbose=True)
     _kernels.lib()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f} s")
-    ptxas = {key: _kernels.ptxas_report(KERNEL_NAMES[key][0]) for key in ("icp", "splat")}
+    ptxas = {key: _kernels.ptxas_report(name) for key, name in PTXAS_NAMES.items()}
     for key, lines in ptxas.items():
-        print(f"ptxas -v {KERNEL_NAMES[key][0]}: " + "; ".join(lines))
+        print(f"ptxas -v {PTXAS_NAMES[key]}: " + "; ".join(lines))
 
     done("phases 1-2")
 
@@ -973,7 +1017,7 @@ def main() -> int:
     frame0, frame1 = dataset.get(0), dataset.get(1)
     depth0 = torch.from_numpy(frame0.image.depth.astype("int32")).cuda()
     splat = check_splat(torch, bil, depth0)
-    slice_ = check_slice(torch, bil, depth0)
+    slice_, slice_a = check_slice(torch, bil, depth0)
     builder = RangeImageBuilder(bilateral_filter=bil.BilateralFilter())
     icp = check_icp(torch, builder.build(frame0, "cuda"), builder.build(frame1, "cuda"))
     done("phase 3, K1-K3")
@@ -1018,12 +1062,16 @@ def main() -> int:
 
     # -- 4. the main path ----------------------------------------------------
     subset = SubsetDataset(dataset, range(FRAMES))
-    icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.SLICE_LAUNCHES = 0
+    icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.NORMALIZE_SLICE_LAUNCHES = 0
+    bil.SLICE_LAUNCHES = bil.NORMALIZE_PASSES = 0
     first = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
-    launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.SLICE_LAUNCHES}
-    print(f"main-path launches: {launches}")
+    launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.NORMALIZE_SLICE_LAUNCHES}
+    print(f"main-path launches: {launches}; K3 form (a) launches {bil.SLICE_LAUNCHES}, "
+          f"_normalize passes {bil.NORMALIZE_PASSES}")
     if min(launches.values()) <= 0:
         return fail(f"a kernel of the main path never launched: {launches}")
+    if bil.SLICE_LAUNCHES or bil.NORMALIZE_PASSES:
+        return fail("the filter normalized a grid or sliced through K3's form (a)")
     second = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
 
     angle_deg = math.degrees(float(first.metrics.angle))
@@ -1061,7 +1109,9 @@ def main() -> int:
     done("phases 4b-4c")
 
     # -- 4d. the throughput path ---------------------------------------------
-    counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"), "slice": (bil, "SLICE_LAUNCHES")}
+    counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
+                "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
+                "normalize": (bil, "NORMALIZE_PASSES")}
     throughput = throughput_path(torch, real, mixed, counters)
     print("throughput path: " + json.dumps(throughput))
     done("phase 4d")
@@ -1123,23 +1173,35 @@ def main() -> int:
                   "plain_ms": batched_bil["splat_plain_ms"], "max_abs_err": batched_bil["splat_max_abs_err"],
                   **batched_bil["splat_library"],
                   **bound(frames * (480 * 640 * 4 + 2 * gh * gw * batched_bil["gd"] * 4), frames * 480 * 640 * 10)}}),
+        # K3: form (b), the filter paths' slice (normalize and cast folded
+        # in; its bound reads value and count of each sampled cell), then
+        # form (a) on the normalized grid. grid_sample reads a normalized grid.
         entry("bilateral_slice (K3)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:389",
-              "slice", slice_, "max |kernel - plain| before the cast",
+              "slice", slice_, "max |kernel - plain| of the int32 output (form (b))", ptxas=ptxas["slice"],
+              form="(b): blurred grid in, normalized at each corner, int32 out",
               launches_by_path={k: v["slice"] for k, v in by_path.items()},
               shapes={f"batch{frames}_gd{batched_bil['gd']}": {
+                  "ms": batched_bil["fused_ms"], "call_ms": batched_bil["fused_call_ms"],
+                  "ms_per_frame": batched_bil["fused_ms"] / frames if batched_bil["fused_ms"] else None,
+                  "plain_ms": batched_bil["fused_plain_ms"], "max_abs_err": batched_bil["fused_max_abs_err"],
+                  **batched_bil["slice_library"],
+                  **bound(batched_bil["slice_cells"] * 8 + frames * 480 * 640 * 8, frames * 480 * 640 * 30)},
+                  "form_a": shape_times(slice_a),
+                  f"form_a_batch{frames}_gd{batched_bil['gd']}": {
                   "ms": batched_bil["slice_ms"], "call_ms": batched_bil["slice_call_ms"],
                   "ms_per_frame": batched_bil["slice_ms_per_frame"],
                   "plain_ms": batched_bil["slice_plain_ms"], "max_abs_err": batched_bil["slice_max_abs_err"],
                   **batched_bil["slice_library"],
                   **bound(batched_bil["slice_cells"] * 4 + frames * 480 * 640 * 8, frames * 480 * 640 * 30)},
                   "sample2_deep": {"frames": batched_bil["deep_batch"], "gd": batched_bil["deep_gd"],
-                                   "max_abs_err": batched_bil["deep_max_abs_err"]}}),
+                                   "form_a_max_abs_err": batched_bil["deep_max_abs_err"],
+                                   "form_b_bitwise": batched_bil["deep_fused_bitwise_plain"]}}),
         # K4's ms at the pcl-ICP path's shape (associate_p2p on sample1);
         # the twin's per-call time is over TIMED_PLAIN_NN calls, its device
         # time over PROFILED_PLAIN_NN.
         entry("nn_banded (K4)", "align3d_torch/csrc/nn_banded.cu", "align3d_tpu/ops/nn_banded.py:178",
               "nn", nn_p2p, "max |kernel - plain| of the scores (positions and payload bitwise)",
-              plain_timed_calls=TIMED_PLAIN_NN, plain_profiled_calls=PROFILED_PLAIN_NN,
+              ptxas=ptxas["nn"], plain_timed_calls=TIMED_PLAIN_NN, plain_profiled_calls=PROFILED_PLAIN_NN,
               shapes={"nearest_500k_band256": shape_times(nn_500[256]),
                       "nearest_500k_band512": shape_times(nn_500[512])}),
         entry("mesh_normals (K5)", "align3d_torch/csrc/mesh.cu", "align3d_tpu/ops/mesh.py:243",

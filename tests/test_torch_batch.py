@@ -45,6 +45,7 @@ from align3d_torch.trajectory import TrajectoryBuilder, accumulate_scan
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_parallel import _synthetic_sequence  # noqa: E402
+from test_torch_bilateral import _normalize_slice_by_pixels  # noqa: E402
 
 FIELDS = ("points", "mask", "normals", "colors", "intensities", "intensity_map")
 
@@ -171,6 +172,32 @@ def test_slice_plain_batched_at_depth_over_128_against_jax():
         # And the batch of three is each frame's batch of one, bitwise.
         one = tb._slice_plain(grids[i], images[i], int(cmin[i]), filt.sigma_space, filt.sigma_color)
         assert torch.equal(one, ours[i])
+
+
+def test_normalize_slice_batched_at_depth_over_128():
+    """The filter's slice (the kernel's form (b): normalize at each corner,
+    cast into int32) at B = 3, gd > 128: bitwise ``_slice_plain`` of the
+    normalized grids plus the cast, the numpy transcription of the kernel,
+    and each frame's batch of one."""
+    frames = _deep_frames()
+    filt = tb.BilateralFilter(pad_depth_to=1)
+    cmin = np.where(frames > 0, frames, 65535).reshape(3, -1).min(axis=1).astype(np.int32)
+    limits = np.array([tb.true_depth(cmin[i], frames[i].max(), filt.sigma_color) for i in range(3)], np.int32)
+    gd = int(limits.max())
+    assert gd > 128
+    images = torch.from_numpy(frames.astype(np.int32))
+    grid = tb.BilateralGrid.from_image_static(images, torch.from_numpy(cmin), gd, filt.sigma_space, filt.sigma_color,
+                                              torch.from_numpy(limits)).convolve()
+    args = (images, torch.from_numpy(cmin), filt.sigma_space, filt.sigma_color)
+    fused = tb._normalize_slice(grid.data_cm, *args)
+    assert torch.equal(fused, tb._slice_plain(tb._normalize(grid.data_cm), *args).to(torch.int32))
+    np.testing.assert_array_equal(
+        fused.numpy(), _normalize_slice_by_pixels(grid.data_cm.numpy(), frames.astype(np.int32), cmin,
+                                                  filt.sigma_space, filt.sigma_color))
+    for i in range(3):
+        one = tb._normalize_slice(grid.data_cm[i], images[i], int(cmin[i]), filt.sigma_space, filt.sigma_color)
+        assert torch.equal(one, fused[i])
+    assert torch.equal(fused, filt.filter_static_batched(images, torch.from_numpy(cmin), gd, torch.from_numpy(limits)))
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 8, 13, 64])

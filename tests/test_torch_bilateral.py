@@ -257,3 +257,55 @@ def test_color_min_counts_holes():
                                  SIGMA_SPACE, SIGMA_COLOR)),
         )
     assert int(depth.min()) == 0
+
+
+def _normalize_slice_by_pixels(grid, depth, cmin, sigma_space, sigma_color):
+    """A numpy transcription of the slice kernel's form (b)
+    (csrc/bilateral.cu::bilateral_slice): per pixel, the value and count of
+    its 8 corners, each corner normalized as it is read (value / count where
+    count > 0, the value otherwise), then the x-, y- and z-lerps in the
+    kernel's order, truncated into int32. ``grid``: (B, 2, gh, gw, gd) float32,
+    ``depth``: (B, H, W), ``cmin``: (B,)."""
+    b, h, w = depth.shape
+    gh, gw, gd = grid.shape[-3:]
+    y0, y1, ya, x0, x1, xa = (t.numpy() for t in tb._slice_tables(h, w, gh, gw, sigma_space, torch.device("cpu")))
+    ya, xa = ya[:, None], xa[None, :]
+    one = np.float32(1.0)
+    out = np.empty((b, h, w), np.int32)
+    for f in range(b):
+        chan = (depth[f].astype(np.float32) - np.float32(cmin[f])) * np.float32(1.0 / sigma_color) + np.float32(2)
+        z0 = np.clip(chan.astype(np.int32), 0, gd - 1)
+        z1 = np.clip((chan + one).astype(np.int32), 0, gd - 1)
+        za = chan - z0.astype(np.float32)
+
+        def corner(y, x, z):
+            val, cnt = (grid[f, k][y[:, None], x[None, :], z] for k in (0, 1))
+            return np.where(cnt > 0, val / np.where(cnt > 0, cnt, one), val)
+
+        def pmix(z):
+            row0 = corner(y0, x0, z) * (one - xa) + corner(y0, x1, z) * xa
+            row1 = corner(y1, x0, z) * (one - xa) + corner(y1, x1, z) * xa
+            return row0 * (one - ya) + row1 * ya
+
+        m0, m1 = pmix(z0), pmix(z1)
+        out[f] = np.where(z0 == z1, ((one - za) + za) * m0, (one - za) * m0 + za * m1).astype(np.int32)
+    return out
+
+
+@pytest.mark.parametrize("name", ["sample1", "deep"])
+def test_normalize_slice_bitwise(frames, name):
+    """The filter's slice (the kernel's form (b)) equals normalize, the float
+    slice and the cast, bitwise: its twin, the numpy transcription of the
+    kernel's per-corner arithmetic, and BilateralFilter.filter, which now
+    writes no normalized grid."""
+    depth = torch.from_numpy(frames[name].astype(np.int32))
+    grid = tb.BilateralGrid.from_image(depth, SIGMA_SPACE, SIGMA_COLOR, 16).convolve()
+    composed = grid.normalize().slice(depth)
+    fused = grid.normalize_slice(depth)
+    assert fused.dtype == torch.int32 and torch.equal(fused, composed)
+    assert torch.equal(tb._normalize_slice_plain(grid.data_cm, depth, grid.color_min, SIGMA_SPACE, SIGMA_COLOR),
+                       composed)
+    got = _normalize_slice_by_pixels(grid.data_cm.numpy()[None], depth.numpy()[None], [int(grid.color_min)],
+                                     SIGMA_SPACE, SIGMA_COLOR)
+    np.testing.assert_array_equal(got[0], composed.numpy())
+    assert torch.equal(tb.BilateralFilter().filter(depth), composed)

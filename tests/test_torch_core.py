@@ -187,7 +187,7 @@ def test_trajectory_metrics_against_jax():
     for tw in twists:
         jt = JaxTransform.exp(jnp.asarray(tw))
         jax_trajs.append(JaxTrajectory(jt, jnp.arange(8, dtype=jnp.float32)))
-        trajs.append(Trajectory(transform_from_numpy(np.asarray(jt.rotation), np.asarray(jt.translation)),
+        trajs.append(Trajectory(transform_from_numpy(np.asarray(jt.rotation), np.asarray(jt.translation), device="cpu"),
                                 torch.arange(8, dtype=torch.float32)))
     jp, jg = jax_trajs[0].first_frame_at_origin(), jax_trajs[1]
     tp, tg = trajs[0].first_frame_at_origin(), trajs[1]

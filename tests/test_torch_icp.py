@@ -41,7 +41,7 @@ TWIST = np.asarray([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], np.float32)
 def _to_torch(ri):
     return convert.range_image_from_numpy(
         *(np.asarray(getattr(ri, k)) for k in ("points", "mask", "normals", "colors", "intensities", "intensity_map")),
-        dataclasses.asdict(ri.intrinsics),
+        dataclasses.asdict(ri.intrinsics), device="cpu",
     )
 
 
@@ -89,7 +89,7 @@ def test_icp_step_matches_jax(sample2_pyramids, level, huber):
         jpose, *_flat(jsrc), jax_pack_geometry(jtgt.points, jtgt.normals, jtgt.mask),
         jax_pack_taps(jtgt.intensity_map), h, w, jtgt.intrinsics, jparams,
     )
-    pose = convert.transform_from_numpy(np.asarray(jpose.rotation), np.asarray(jpose.translation))
+    pose = convert.transform_from_numpy(np.asarray(jpose.rotation), np.asarray(jpose.translation), device="cpu")
     ours = icp_step(
         pose, *_flat(tsrc), pack_geometry(ttgt.points, ttgt.normals, ttgt.mask),
         pack_intensity_taps(ttgt.intensity_map), h, w, ttgt.intrinsics, params,
@@ -151,7 +151,7 @@ def test_fused_step_on_intensity_map_matches_jax(sample2_pyramids, level, huber)
         jpose, *_flat(jsrc), jax_pack_geometry(jtgt.points, jtgt.normals, jtgt.mask),
         jax_pack_taps(jtgt.intensity_map), h, w, jtgt.intrinsics, jax_ms[level],
     )
-    pose = convert.transform_from_numpy(np.asarray(jpose.rotation), np.asarray(jpose.translation))
+    pose = convert.transform_from_numpy(np.asarray(jpose.rotation), np.asarray(jpose.translation), device="cpu")
     pts, mask, inten = _flat(tsrc)
     aug = icp_fused.icp_step_fused(
         pose.rotation[None], pose.translation[None], pts[None], mask[None].to(torch.uint8), inten[None],
@@ -207,7 +207,7 @@ def test_align_matches_jax(sample2_pyramids, huber):
     np.testing.assert_allclose(trans.numpy(), np.asarray(ref_t), atol=1e-4)
     np.testing.assert_allclose(float(res), float(ref_res), rtol=1e-3)
     # And the reference accuracy bar on real data (tests/test_icp.py).
-    gt_t = convert.transform_from_numpy(np.asarray(gt.rotation), np.asarray(gt.translation))
+    gt_t = convert.transform_from_numpy(np.asarray(gt.rotation), np.asarray(gt.translation), device="cpu")
     assert float(TransformMetrics.new(Transform(rot, trans), gt_t).angle) < 0.01
 
 

@@ -102,11 +102,32 @@ def test_slice_kernel_matches_plain(depth_frames, name):
     depth = depth_frames[name]
     grid = bil.BilateralGrid.from_image(depth, SIGMA_SPACE, SIGMA_COLOR, 16).convolve().normalize()
     args = (grid.data_cm, depth, grid.color_min, SIGMA_SPACE, SIGMA_COLOR)
-    got, ref = bil._slice(*args), bil._slice_plain(*args)
-    # atol 2e-3 before the cast, <= 1 after it (measured bitwise on an H100:
-    # the kernel uses round-to-nearest intrinsics in the plain op order).
-    assert float((got - ref).abs().max()) <= 2e-3
-    assert int((got.to(torch.int32) - ref.to(torch.int32)).abs().max()) <= 1
+    before = bil.SLICE_LAUNCHES
+    got = bil._slice(*args)
+    assert bil.SLICE_LAUNCHES == before + 1
+    # Bitwise: the kernel's form (a) uses round-to-nearest intrinsics in the
+    # plain op order.
+    assert torch.equal(got, bil._slice_plain(*args))
+
+
+@pytest.mark.parametrize("name", ["sample1", "deep", "odd_width", "two_segments", "two_segments_odd"])
+def test_normalize_slice_kernel_bitwise(depth_frames, name):
+    """Form (b) on the blurred grid equals normalize, form (a) and the cast,
+    bitwise; also where a row is no whole number of 4-pixel groups, and
+    where a row spans two blocks' segments (1,024 pixels each)."""
+    sample = depth_frames["sample1"]
+    depth = {"odd_width": sample[:, :637], "two_segments": torch.cat([sample, sample], dim=1)[:240],
+             "two_segments_odd": torch.cat([sample, sample], dim=1)[:240, :1282]}.get(name, depth_frames.get(name))
+    depth = depth.contiguous()
+    grid = bil.BilateralGrid.from_image(depth, SIGMA_SPACE, SIGMA_COLOR, 16).convolve()
+    args = (grid.data_cm, depth, grid.color_min, SIGMA_SPACE, SIGMA_COLOR)
+    before = (bil.NORMALIZE_SLICE_LAUNCHES, bil.NORMALIZE_PASSES)
+    got = bil._normalize_slice(*args)
+    assert (bil.NORMALIZE_SLICE_LAUNCHES, bil.NORMALIZE_PASSES) == (before[0] + 1, before[1])
+    assert got.dtype == torch.int32
+    assert torch.equal(got, bil._normalize_slice_plain(*args))
+    assert torch.equal(got, grid.normalize().slice(depth))
+    assert torch.equal(got, bil.BilateralFilter().filter(depth))
 
 
 @pytest.fixture(scope="module")
@@ -192,8 +213,9 @@ def _search_args(grid, queries, band_width, anchor_min):
     return grid.planes, qplanes, bstarts, bw
 
 
+# Bands of 1, 3, 4, 5 and 8 tiles: the kernel stages 4 tiles at a time.
 @pytest.mark.parametrize("payload", [False, True])
-@pytest.mark.parametrize("band_width", [128, 512, 1024])
+@pytest.mark.parametrize("band_width", [128, 384, 512, 640, 1024])
 @pytest.mark.parametrize("n_db, n_q", [(20000, 999), (300, 130)])  # ragged Q; a DB smaller than the band
 def test_nn_banded_kernel_bitwise(cuda_device, n_db, n_q, band_width, payload):
     grid, queries = _grid_and_queries(cuda_device, n_db, n_q, 0.05, seed=n_db + band_width)
@@ -209,6 +231,32 @@ def test_nn_banded_kernel_bitwise(cuda_device, n_db, n_q, band_width, payload):
     # No atomics: a rerun is bitwise identical.
     again = nn_banded.band_search(*args, payload)
     assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("band_width", [512, 640])
+def test_nn_banded_kernel_bitwise_tied_duplicates(cuda_device, band_width):
+    """Each DB point three times at different sorted positions: every score
+    ties at least three ways, and the smallest position must win in the
+    kernel as in the twin, also across overlapping bands."""
+    rng = np.random.default_rng(4)
+    db = np.repeat(rng.uniform(0, 1, (4000, 3)).astype(np.float32), 3, axis=0)[rng.permutation(12000)]
+    grid = nn_banded.SortedGrid.build(torch.from_numpy(db).to(cuda_device), 0.05,
+                                      normals=torch.from_numpy(rng.normal(size=db.shape).astype(np.float32)).to(cuda_device))
+    queries = torch.from_numpy(db[:1500] + np.float32(0.001)).to(cuda_device)
+    for payload in (False, True):
+        args = _search_args(grid, queries, band_width, anchor_min=payload)
+        got, ref = nn_banded.band_search(*args, payload), nn_banded.band_search_plain(*args, payload)
+        assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_nn_banded_ptxas_report(cuda_device):
+    """K4's -Xptxas -v report: registers and shared memory, no spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    lines = _kernels.ptxas_report("nn_banded")
+    assert any("registers" in line for line in lines), lines
+    assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
 
 
 def test_nn_banded_grid_and_search_match_cpu(cuda_device):
@@ -336,8 +384,25 @@ def test_batched_splat_and_slice_bitwise_against_single_frames(cuda_device):
         assert torch.equal(bil._slice(norm[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space,
                                       filt.sigma_color), sliced[b])
     # The batched slice at B >= 3, gd > 128 against its plain twin.
-    ref = bil._slice_plain(norm, depths, cmin, filt.sigma_space, filt.sigma_color)
-    assert float((sliced - ref).abs().max()) <= 2e-3
+    assert torch.equal(sliced, bil._slice_plain(norm, depths, cmin, filt.sigma_space, filt.sigma_color))
+
+
+def test_batched_normalize_slice_bitwise_against_single_frames(cuda_device):
+    """Form (b) over 12 frames at gd > 128 in one launch: bitwise its plain
+    twin and each frame's own launch."""
+    depths = _series_depths(cuda_device)
+    filt = bil.BilateralFilter()
+    cmin, cmax = bil.nonzero_min_max(depths)
+    gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(cmin.tolist(), cmax.tolist()))
+    gh, gw = bil._grid_dims(*depths.shape[-2:], filt.sigma_space)
+    grids = bil._blur(bil._splat(depths, cmin, (gh, gw, gd), filt.sigma_space, filt.sigma_color), gd)
+    before = bil.NORMALIZE_SLICE_LAUNCHES
+    got = bil._normalize_slice(grids, depths, cmin, filt.sigma_space, filt.sigma_color)
+    assert bil.NORMALIZE_SLICE_LAUNCHES == before + 1
+    assert torch.equal(got, bil._normalize_slice_plain(grids, depths, cmin, filt.sigma_space, filt.sigma_color))
+    for b in range(depths.shape[0]):
+        one = bil._normalize_slice(grids[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space, filt.sigma_color)
+        assert torch.equal(one, got[b])
 
 
 def test_bucketed_filter_bitwise_against_per_frame(cuda_device):

@@ -87,7 +87,8 @@ def test_voxel_hash_nearest_matches_jax():
     np.testing.assert_allclose(sq.numpy(), np.asarray(ref_sq), atol=1e-6, rtol=0)
     # The JAX grid, carried over, gives the same answer.
     carried = convert.voxel_hash_grid_from_numpy(
-        np.asarray(jgrid.sorted_hash), np.asarray(jgrid.sorted_points), np.asarray(jgrid.sorted_indices), 0.5
+        np.asarray(jgrid.sorted_hash), np.asarray(jgrid.sorted_points), np.asarray(jgrid.sorted_indices), 0.5,
+        device="cpu",
     )
     assert torch.equal(voxel_hash.nearest(carried, _t(queries), max_per_cell=64)[0], idx)
 
@@ -216,7 +217,7 @@ def _p2p_inputs(db_pts, db_nrm, queries, cell):
     jgrid = jax_nn.SortedGrid.build(jnp.asarray(db_pts), cell, normals=jnp.asarray(db_nrm))
     grid = convert.sorted_grid_from_numpy(
         np.asarray(jgrid.planes), np.asarray(jgrid.orig_idx), np.asarray(jgrid.starts),
-        jgrid.cell_size, jgrid.origin, jgrid.dims, jgrid.n,
+        jgrid.cell_size, jgrid.origin, jgrid.dims, jgrid.n, device="cpu",
     )
     lin = grid.cell_ids(_t(queries)).numpy()
     order = np.argsort(lin, kind="stable")
@@ -272,3 +273,127 @@ def test_band_search_nan_query_has_no_winner():
     score, pos, pay = nn_banded.band_search(grid.planes, q, bstarts, 512, True)
     assert score[5] == torch.inf and int(pos[5]) == 2**31 - 1 and torch.all(pay[:, 5] == 0)
     assert torch.all(pos[:5] < 512) and torch.isfinite(score[:5]).all()
+
+
+# -- K4's scan order, transcribed -------------------------------------------------
+
+_K4_WARPS, _K4_SLICE, _K4_CHUNK_TILES = 8, 16, 4  # csrc/nn_banded.cu: kWarps, kSlice, kChunkTiles
+
+
+def _before(s, p, best, bpos):
+    """The lexicographic (score, position) order of the kernel's merges."""
+    return (s < best) | ((s == best) & (p < bpos))
+
+
+def _band_search_by_warps(planes, queries, bstarts, band_width, payload):
+    """A numpy transcription of K4's scan order (csrc/nn_banded.cu). Per
+    query block, each of 8 warps scores 16 of every tile's 128 candidates,
+    tiles taken 4 at a time per band. Within a band a warp's positions
+    increase, so a strict ``s < best`` (NaN never wins) keeps the first of
+    equal scores; the band's winner merges into the warp's running winner
+    by the full (score, position) rule, and then the 8 warps' winners merge
+    by that rule in warp order. A query with no finite score takes the
+    first position whose score is +inf, if any."""
+    planes, q, bst = planes.numpy(), queries.numpy(), bstarts.numpy()
+    tiles, band_tiles, nblocks = planes.shape[0], band_width // 128, q.shape[1] // 128
+    rows = planes.transpose(1, 0, 2).reshape(8, -1)
+    tile0 = np.clip(bst.reshape(nblocks, 9) // 128, 0, tiles - band_tiles)
+    qx, qy, qz = (q[r].reshape(nblocks, 1, 128) for r in range(3))
+    slices = np.arange(_K4_WARPS) * _K4_SLICE
+    no_winner = np.int64(2**31 - 1)
+    best = np.full((nblocks, _K4_WARPS, 128), np.inf, np.float32)
+    bpos = np.full(best.shape, no_winner)
+    with np.errstate(all="ignore"):
+        for b in range(9):
+            band_best, band_pos = np.full_like(best, np.inf), np.full_like(bpos, no_winner)
+            for first in range(0, band_tiles, _K4_CHUNK_TILES):
+                for j in range(min(_K4_CHUNK_TILES, band_tiles - first)):
+                    slice_pos = (tile0[:, b, None] + first + j) * 128 + slices  # (nblocks, warps)
+                    won = np.full(best.shape, -1)
+                    for u in range(_K4_SLICE):
+                        c0, c1, c2, c3 = (rows[r][slice_pos + u][..., None] for r in range(4))
+                        s = c3 + ((qx * c0 + qy * c1) + qz * c2)
+                        win = s < band_best
+                        band_best, won = np.where(win, s, band_best), np.where(win, u, won)
+                    band_pos = np.where(won >= 0, slice_pos[..., None] + won, band_pos)
+            take = _before(band_best, band_pos, best, bpos)
+            best, bpos = np.where(take, band_best, best), np.where(take, band_pos, bpos)
+        score, pos = best[:, 0], bpos[:, 0]
+        for w in range(1, _K4_WARPS):
+            take = _before(best[:, w], bpos[:, w], score, pos)
+            score, pos = np.where(take, best[:, w], score), np.where(take, bpos[:, w], pos)
+        for blk, t in zip(*np.nonzero(score == np.inf)):
+            cand = (tile0[blk, :, None] * 128 + np.arange(band_width)).reshape(-1)
+            s = rows[3][cand] + ((qx[blk, 0, t] * rows[0][cand] + qy[blk, 0, t] * rows[1][cand])
+                                 + qz[blk, 0, t] * rows[2][cand])
+            if (s == np.inf).any():
+                pos[blk, t] = cand[s == np.inf].min()
+    score, pos = score.reshape(-1), pos.reshape(-1).astype(np.int32)
+    pay = None
+    if payload:
+        found = pos != no_winner
+        pay = np.where(found, rows[4:][:, np.where(found, pos, 0)], np.float32(0.0))
+    return score, pos, pay
+
+
+def _k4_case(case):
+    """(DB points, normals, queries, cell, NaN query columns) of each case."""
+    rng = np.random.default_rng(21)
+    if case == "duplicates":  # each point three times, at different sorted positions: tied scores
+        db = np.repeat(_cloud(3000, 22), 3, axis=0)[rng.permutation(9000)]
+        queries = db[:900] + np.float32(0.001)
+    elif case == "small_db":  # a DB smaller than one band: the bands overlap or coincide
+        db, queries = _cloud(300, 23), _cloud(130, 24)
+    else:
+        db = _cloud(12000, 25)
+        queries = np.concatenate([db[rng.integers(0, 12000, 500)] + rng.normal(0, 0.005, (500, 3)),
+                                  rng.uniform(-0.2, 1.2, (499, 3))]).astype(np.float32)
+    nrm = rng.normal(size=db.shape).astype(np.float32)
+    cell = 0.25 if case == "small_db" else 0.05
+    return db, nrm, queries, cell, (3, 200, 640) if case == "nan_query" else ()
+
+
+@pytest.mark.parametrize("band_width", [128, 512, 1024])
+@pytest.mark.parametrize("case", ["uniform", "duplicates", "small_db", "nan_query"])
+def test_k4_scan_order_bitwise_against_twin(case, band_width):
+    """The kernel's candidate split and merge rule, transcribed, give the
+    twin's bits in both modes: scores, positions and payload."""
+    db, nrm, queries, cell, nan_cols = _k4_case(case)
+    grid = nn_banded.SortedGrid.build(_t(db), cell, normals=_t(nrm))
+    lin = grid.cell_ids(_t(queries))
+    order = torch.argsort(lin, stable=True)
+    q_s = _t(queries)[order]
+    for payload in (False, True):
+        qplanes, bstarts, bw = nn_banded.search_inputs(grid, lin[order], q_s[:, 0], q_s[:, 1], q_s[:, 2],
+                                                       band_width, anchor_on_min=payload)
+        qplanes[:, list(nan_cols)] = torch.nan
+        ref = nn_banded.band_search_plain(grid.planes, qplanes, bstarts, bw, payload)
+        got = _band_search_by_warps(grid.planes, qplanes, bstarts, bw, payload)
+        np.testing.assert_array_equal(got[0].view(np.uint32), ref[0].numpy().view(np.uint32))
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
+        if payload:
+            np.testing.assert_array_equal(got[2].view(np.uint32), ref[2].numpy().view(np.uint32))
+        if case == "small_db":
+            assert grid.planes.shape[0] * 128 < 512
+        if nan_cols:
+            assert (ref[1].numpy()[list(nan_cols)] == 2**31 - 1).all()
+
+
+def test_k4_scan_order_first_inf_position():
+    """Scores that overflow to +inf: a query block whose bands hold no finite
+    score takes the first +inf position, as the twin does, and a NaN query
+    none."""
+    rng = np.random.default_rng(26)
+    planes = _t(rng.normal(size=(6, 8, 128)).astype(np.float32))
+    planes[:, 3, :] = torch.inf
+    planes[2, 3, 50] = 1.0  # one finite candidate, which only the first block's bands reach
+    queries = _t(rng.normal(size=(3, 256)).astype(np.float32))
+    queries[:, 7] = torch.nan
+    bstarts = torch.tensor([256, 384, 0, 128, 384, 0, 256, 128, 0] + [384, 384, 0, 0, 0, 0, 384, 0, 384],
+                           dtype=torch.int32)
+    for payload in (False, True):
+        ref = nn_banded.band_search_plain(planes, queries, bstarts, 256, payload)
+        got = _band_search_by_warps(planes, queries, bstarts, 256, payload)
+        np.testing.assert_array_equal(got[0].view(np.uint32), ref[0].numpy().view(np.uint32))
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
+        assert int(ref[1][0]) == 306 and int(ref[1][7]) == 2**31 - 1 and int(ref[1][128]) == 0

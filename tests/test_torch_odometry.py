@@ -58,7 +58,8 @@ def test_odometry_matches_jax(port_result, sample1_dataset):
     builder = JaxRangeImageBuilder(bilateral_filter=JaxBilateralFilter())
     ref = jax_run_odometry(sample1_dataset, range_builder=builder, max_frames=FRAMES)
     ref_poses = transform_from_numpy(
-        np.asarray(ref.trajectory.camera_to_world.rotation), np.asarray(ref.trajectory.camera_to_world.translation)
+        np.asarray(ref.trajectory.camera_to_world.rotation), np.asarray(ref.trajectory.camera_to_world.translation),
+        device="cpu",
     )
     angle, trans = _pose_diff(ref_poses, port_result.trajectory.camera_to_world)
     # Each pose within 1e-3 rad / 1e-3 m (measured max 1.0e-6 rad, 1.9e-6 m).

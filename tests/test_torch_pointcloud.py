@@ -142,7 +142,7 @@ def test_from_range_image_matches_jax(sample1_range_images):
     # Fed the JAX range image's arrays, the flattening is bitwise in every field.
     carried = convert.range_image_from_numpy(
         np.asarray(ref_ri.points), np.asarray(ref_ri.mask), np.asarray(ref_ri.normals), np.asarray(ref_ri.colors),
-        None, None, dataclasses.asdict(ref_ri.intrinsics),
+        None, None, dataclasses.asdict(ref_ri.intrinsics), device="cpu",
     )
     ours = PointCloud.from_range_image(carried).compacted()
     ref = ref.compacted()
