@@ -62,11 +62,7 @@ _SIGNATURES = {
     "a3d_fma_peak": [_P, _P, _I, _I, _P],  # x, out, n, steps, stream
     "a3d_gather_lane": [_P, _P, _P, _I, _I, _P],  # x, idx, out, rows, steps, stream
     "a3d_gather_table": [_P, ctypes.c_uint, _P, _P, _I, _I, _P],  # table, m, x, out, n, steps, stream
-    "a3d_mesh_normals": [
-        _P, _P, _I,  # points, faces, faces count
-        _P, _P, _I, _I,  # incidence table, counts, vertices, degree
-        _P, _P, _P,  # face-normal buffer, out, stream
-    ],
+    "a3d_mesh_normals": [_P, _P, _P, _I, _I, _P, _P],  # points, (D, N, 2) corner table, counts, N, D, out, stream
 }
 
 _lock = threading.Lock()

@@ -58,7 +58,7 @@ def cmd_odometry(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="align3d_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -74,12 +74,22 @@ def main(argv=None) -> int:
         help="accepted for compatibility with align3d-tpu: every engine runs "
         "the same fused GN step (CUDA kernel on the GPU, plain PyTorch on the CPU)",
     )
+    p_odo.add_argument(
+        "--coarse-exact",
+        action="store_true",
+        help="accepted for compatibility with align3d-tpu, where it keeps exact "
+        "association at the coarsest level of a pallas engine: the port "
+        "associates exactly at every level, so it changes nothing",
+    )
     p_odo.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p_odo.add_argument("--quiet", "-q", action="store_true")
     p_odo.add_argument("--save-trajectory", metavar="PATH")
     p_odo.set_defaults(fn=cmd_odometry)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

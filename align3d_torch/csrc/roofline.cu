@@ -33,6 +33,16 @@
 //     B = 64). Bound: L2 or HBM sectors; a 4-byte random gather moves a
 //     32-byte sector. All arithmetic is unsigned, so sums wrap as int32 does
 //     in the plain twin.
+//
+// The table mode's ablation (tools/ablate.py builds this file with -D macros
+// into build/ablate/): A3D_TABLE_ILP x A3D_TABLE_U, the loads a thread has in
+// flight (the library: 4 x 16, tools/roofline.py's TABLE_ILP, TABLE_U);
+// A3D_TABLE_MIN_BLOCKS, __launch_bounds__' minimum of resident blocks per
+// SM; A3D_TABLE_SECTOR 1, each gather reads the whole 32-byte sector that
+// holds its index as two 16-byte loads and adds its 8 values (another
+// function, same index stream: the table must be 32-byte aligned, its length
+// a multiple of 8); A3D_ABLATE_L2_FETCH 1 exports a3d_l2_fetch_granularity,
+// which sets cudaLimitMaxL2FetchGranularity and returns the old value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +52,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kFmaIlp = 4, kFmaU = 64;      // vpu_fma_peak's ilp and u
 constexpr int kLaneIlp = 4, kLaneU = 16;    // lane_gather_peak's ilp and u
-constexpr int kTableIlp = 4, kTableU = 16;
+#ifndef A3D_TABLE_ILP
+#define A3D_TABLE_ILP 4
+#endif
+#ifndef A3D_TABLE_U
+#define A3D_TABLE_U 16
+#endif
+#ifndef A3D_TABLE_MIN_BLOCKS
+#define A3D_TABLE_MIN_BLOCKS 1
+#endif
+#ifndef A3D_TABLE_SECTOR
+#define A3D_TABLE_SECTOR 0
+#endif
+constexpr int kTableIlp = A3D_TABLE_ILP, kTableU = A3D_TABLE_U;
 constexpr int kRow = 128;                   // lanes of the TPU probe's rows
 constexpr int kRowsPerBlock = kThreads / 32;
 
@@ -127,7 +149,18 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t table_load(const int32_t* __restrict__ table, uint32_t j) {
+#if A3D_TABLE_SECTOR
+  const int4* sector = reinterpret_cast<const int4*>(table + (j & ~7u));
+  const int4 lo = __ldg(sector), hi = __ldg(sector + 1);
+  return (uint32_t)lo.x + (uint32_t)lo.y + (uint32_t)lo.z + (uint32_t)lo.w + (uint32_t)hi.x + (uint32_t)hi.y +
+         (uint32_t)hi.z + (uint32_t)hi.w;
+#else
+  return (uint32_t)__ldg(table + j);
+#endif
+}
+
+__global__ void __launch_bounds__(kThreads, A3D_TABLE_MIN_BLOCKS)
 gather_table(const int32_t* __restrict__ table, uint32_t m, const int32_t* __restrict__ x,
              int32_t* __restrict__ out, int n, int steps) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
@@ -146,7 +179,7 @@ gather_table(const int32_t* __restrict__ table, uint32_t m, const int32_t* __res
 #pragma unroll
       for (int i = 0; i < kTableIlp; ++i) {
         st[i] = st[i] * 1664525u + 1013904223u;
-        a[i] += (uint32_t)__ldg(table + __umulhi(st[i], m));
+        a[i] += table_load(table, __umulhi(st[i], m));
       }
     }
     uint32_t acc = a[0];
@@ -181,3 +214,13 @@ extern "C" int a3d_gather_table(const void* table, unsigned m, const void* x, vo
       static_cast<int32_t*>(out), n, steps);
   return (int)cudaGetLastError();
 }
+
+#if A3D_ABLATE_L2_FETCH
+extern "C" int a3d_l2_fetch_granularity(int bytes, int* previous) {
+  size_t old = 0;
+  cudaError_t err = cudaDeviceGetLimit(&old, cudaLimitMaxL2FetchGranularity);
+  if (err != cudaSuccess) return (int)err;
+  *previous = (int)old;
+  return (int)cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
+}
+#endif

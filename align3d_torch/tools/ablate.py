@@ -2,10 +2,12 @@
 
     python -m align3d_torch.tools.ablate
 
+    python -m align3d_torch.tools.ablate mesh_designs mesh_host table_gather   # only these
+
 Needs a CUDA device and ``nvcc`` (found as the kernel build finds it) and
 fails without them. Prints one JSON line with the card's name and power
-limit and four comparisons, each made in this one process, so that their
-times compare:
+limit and the comparisons below (all of them, or those named on the command
+line), each made in this one process, so that their times compare:
 
 * **K2's exact path** (``splat_exact``). ``csrc/bilateral.cu`` is built
   twice into ``build/ablate/``: as the kernel library builds it, and with
@@ -31,6 +33,35 @@ times compare:
   1 for form (b)); each build's two forms are held bitwise against their
   plain twins and timed at one sample1 frame and at 65 frames, in the order
   4, 1, 2, 2, 1, 4.
+* **K5's designs** (``mesh_designs``). ``csrc/mesh.cu`` is built with the
+  -D macros of ``MESH_VARIANTS``: the library's design (one launch over the
+  corner table) at 1, 2 and 4 slots in flight and 128 or 256 threads a
+  block; the earlier two launches through a face buffer; one cooperative
+  launch (face pass, grid barrier, vertex pass, its face buffer allocated
+  once); and one launch over the face-id incidence table, a thread a
+  vertex recomputing its faces at 12 loads a face (design 3). Each is held
+  bitwise (the sign of zero included, NaN at the same vertices) against
+  ``vertex_normals_plain`` and timed on the teapot and the grid meshes of
+  204,800 and 3,276,800 faces, in ``MESH_VARIANTS``' order and then back;
+  beside the profiler's and the CUDA events' times, ``graph_ms`` replays
+  the calls from one CUDA graph, which takes the host out of a call that
+  is shorter than its dispatch (not for the cooperative launch).
+* **K5's host cost** (``mesh_host``): host µs per call, back to back, of
+  ``MeshNormals.__call__`` (the topology checked at construction), of the
+  free ``vertex_normals`` (every tensor checked), and of the earlier wrapper
+  (four checks, a face buffer and the output allocated, a 10-argument
+  ctypes call into the two-launch build), on the 204,800-face grid.
+* **P2's table mode** (``table_gather``). ``csrc/roofline.cu`` is built with
+  ``-DA3D_TABLE_ILP`` x ``-DA3D_TABLE_U`` at 4 x 16 (the library's), 8 x 8
+  and 16 x 4; 4 x 16 with ``__launch_bounds__``' minimum of 8 blocks an SM
+  (``-DA3D_TABLE_MIN_BLOCKS``); 4 x 16 reading the whole 32-byte sector of
+  each index (``-DA3D_TABLE_SECTOR``, another function on the same index
+  stream); and the library's kernel with ``cudaLimitMaxL2FetchGranularity``
+  at 32 bytes against the default, set and restored around the launches.
+  Each build is held bitwise against its twin (the sector build against the
+  twin of a table of sector sums) and timed in the l2 and hbm modes of
+  ``tools/roofline.py``, in order and then in reverse; gathers/s and the
+  share of the hbm bound at 32 bytes a gather.
 
 Each time is given twice: device ms per call from ``torch.profiler``
 (``tools/roofline.py::device_ms``), and ms per call of back-to-back calls
@@ -43,6 +74,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,18 +83,23 @@ from align3d_torch import _kernels
 
 BUILD = _kernels.BUILD_DIR.parent / "ablate"
 CALLS = {"frame": 50, "series": 10}  # calls per timing at each shape
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: K5's entry with a face buffer (designs 0 and 2): points, faces, F, table,
+#: counts, N, D, face buffer, out, stream.
+MESH_BUFFERED = [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P]
 
 
-def build_bilateral(variants: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
-    """``bilateral.cu`` built once per variant, each with its -D macros, all
-    ``nvcc`` started together; name -> the loaded library, its splat and
-    slice entry points typed."""
+def build_variants(source: str, variants: dict[str, dict[str, int]], entries) -> dict[str, ctypes.CDLL]:
+    """``csrc/<source>`` built once per variant, each with its -D macros, all
+    ``nvcc`` started together; name -> the loaded library with the entry
+    points ``entries(name)`` (entry name -> argtypes) typed."""
     BUILD.mkdir(parents=True, exist_ok=True)
+    stem = source.rsplit(".", 1)[0]
     jobs = {}
     for name, defines in variants.items():
-        out = BUILD / f"libbilateral_{name}.so"
+        out = BUILD / f"lib{stem}_{name}.so"
         cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", *(f"-D{k}={v}" for k, v in defines.items()),
-               "-o", str(out), str(_kernels._CSRC / "bilateral.cu")]
+               "-o", str(out), str(_kernels._CSRC / source)]
         jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (out, proc) in jobs.items():
@@ -70,12 +107,38 @@ def build_bilateral(variants: dict[str, dict[str, int]]) -> dict[str, ctypes.CDL
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{stdout}\n{stderr}")
         lib = ctypes.CDLL(str(out))
-        for entry in ("a3d_bilateral_splat", "a3d_bilateral_slice"):
+        for entry, argtypes in entries(name).items():
             fn = getattr(lib, entry)
-            fn.argtypes = _kernels._SIGNATURES[entry]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build_bilateral(variants: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
+    """``bilateral.cu`` per variant, its splat and slice entry points typed."""
+    return build_variants("bilateral.cu", variants, lambda _: {
+        e: _kernels._SIGNATURES[e] for e in ("a3d_bilateral_splat", "a3d_bilateral_slice")})
+
+
+def grid_mesh(side: int, freq: float = 0.1) -> tuple[np.ndarray, np.ndarray]:
+    """benches/bench_mesh.py's height-field mesh: (side + 1)^2 vertices,
+    2 side^2 faces (side 320: 204,800 faces; side 1280: 3,276,800)."""
+    ys, xs = np.meshgrid(np.arange(side + 1), np.arange(side + 1), indexing="ij")
+    zs = np.sin(xs * freq) * np.cos(ys * freq)
+    pts = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3).astype(np.float32)
+    faces = []
+    for r in range(side):
+        base, a = r * (side + 1), np.arange(side)
+        faces.append(np.stack([base + a, base + a + 1, base + side + 1 + a], 1))
+        faces.append(np.stack([base + a + 1, base + side + 2 + a, base + side + 1 + a], 1))
+    return pts, np.concatenate(faces).astype(np.int32)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, the sign of zero included, NaN at the same places."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
 def splat_with(fn, frames: torch.Tensor, cmin: torch.Tensor, grid_shape, sigma_space: float,
@@ -224,16 +287,245 @@ def slice_pixels(device) -> dict:
     return out
 
 
-def main() -> int:
+def mesh_inputs(device) -> dict:
+    """K5's shapes, the teapot and the grid meshes of 204,800 and 3,276,800
+    faces: name -> (``MeshNormals`` on ``device``, its points, the faces,
+    the slot-major (D, N) face-id incidence table), tensors on ``device``."""
+    from align3d_torch.io import read_ply
+    from align3d_torch.ops.mesh import MeshNormals, incidence
+
+    teapot = read_ply(Path(__file__).resolve().parents[2] / "tests" / "data" / "teapot.ply")
+    meshes = {"teapot": (teapot.points, teapot.faces.astype(np.int32)), "grid320": grid_mesh(320),
+              "grid1280": grid_mesh(1280)}
+    out = {}
+    for name, (pts, faces) in meshes.items():
+        ids = incidence(faces, pts.shape[0])[0].astype(np.int32)
+        out[name] = (MeshNormals(faces, pts.shape[0], device=device), torch.from_numpy(pts).to(device),
+                     torch.from_numpy(faces).to(device), torch.from_numpy(ids).to(device))
+    return out
+
+
+#: K5's builds: the library's (design 1, the corner table) at 1, 2 (its
+#: own) and 4 slots in flight and at 256 threads a block; the earlier two
+#: launches and the cooperative launch (256 threads a block, as before); one
+#: thread a vertex recomputing its faces from the face-id table (2 slots at
+#: 128 threads, 4 at 256).
+MESH_VARIANTS = {
+    "two_launch": {"A3D_MESH_DESIGN": 0, "A3D_MESH_THREADS": 256},
+    "corners_2": {"A3D_MESH_DESIGN": 1},
+    "cooperative": {"A3D_MESH_DESIGN": 2, "A3D_MESH_THREADS": 256},
+    "faces_2": {"A3D_MESH_DESIGN": 3, "A3D_MESH_SLOTS": 2},
+    "faces_4_t256": {"A3D_MESH_DESIGN": 3, "A3D_MESH_SLOTS": 4, "A3D_MESH_THREADS": 256},
+    "corners_1": {"A3D_MESH_DESIGN": 1, "A3D_MESH_SLOTS": 1},
+    "corners_4": {"A3D_MESH_DESIGN": 1, "A3D_MESH_SLOTS": 4},
+    "corners_2_t256": {"A3D_MESH_DESIGN": 1, "A3D_MESH_THREADS": 256},
+}
+
+
+def _mesh_entry_types(name: str) -> dict:
+    design = MESH_VARIANTS[name]["A3D_MESH_DESIGN"]
+    if design == 1:
+        return {"a3d_mesh_normals": _kernels._SIGNATURES["a3d_mesh_normals"]}
+    return {"a3d_mesh_normals": MESH_BUFFERED if design in (0, 2) else MESH_BUFFERED[:7] + MESH_BUFFERED[8:]}
+
+
+def graph_ms(fn, calls: int) -> float:
+    """Device ms per call of ``fn``, without the host: ``calls`` calls
+    captured in one CUDA graph, replayed between CUDA events (the gaps
+    between the graph's kernels included)."""
+    from align3d_torch.tools.roofline import time_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps=5) / calls
+    del graph
+    return ms
+
+
+def mesh_designs(device) -> dict:
+    """K5's designs against each other (see the module docstring)."""
+    from align3d_torch.ops.mesh import vertex_normals_plain
+    from align3d_torch.tools.roofline import device_ms, time_ms
+
+    libs = build_variants("mesh.cu", MESH_VARIANTS, _mesh_entry_types)
+    out = {}
+    for label, (ev, points, faces, ids) in mesh_inputs(device).items():
+        n, f, d = ev.n_vertices, faces.shape[0], ev.degree
+        row_major = ids.t().contiguous()
+        face_buf = torch.empty((f + 1, 3), dtype=torch.float32, device=device)  # once per topology
+        def call(name):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)  # the capture's, in graph_ms
+            res = torch.empty((n, 3), dtype=torch.float32, device=device)
+            design, entry = MESH_VARIANTS[name]["A3D_MESH_DESIGN"], libs[name].a3d_mesh_normals
+            if design == 1:
+                args = (points.data_ptr(), ev.table.data_ptr(), ev.counts.data_ptr(), n, d)
+            else:
+                table = row_major if design == 0 else ids
+                args = (points.data_ptr(), faces.data_ptr(), f, table.data_ptr(), ev.counts.data_ptr(), n, d,
+                        *((face_buf.data_ptr(),) if design in (0, 2) else ()))
+            _kernels.check(entry(*args, res.data_ptr(), stream), f"a3d_mesh_normals ({name})")
+            return res
+
+        ref = vertex_normals_plain(points, ev.table, ev.counts)
+        row = {"faces": f, "vertices": n, "degree": d}
+        calls = CALLS["frame"] if f < 1_000_000 else CALLS["series"]
+        order = list(MESH_VARIANTS)
+        for name in order + order[::-1]:
+            fn = lambda name=name: call(name)  # noqa: E731
+            row.setdefault(f"{name}_bitwise", same_bits(fn(), ref))
+            ms, seen = device_ms(fn, calls)
+            row.setdefault(f"{name}_ms", []).append(ms)
+            row.setdefault(f"{name}_activities", []).append(seen)
+            row.setdefault(f"{name}_event_ms", []).append(time_ms(fn, reps=calls))
+            if MESH_VARIANTS[name]["A3D_MESH_DESIGN"] != 2:  # a cooperative launch is not captured
+                row.setdefault(f"{name}_graph_ms", []).append(graph_ms(fn, calls))
+        if not all(v for k, v in row.items() if k.endswith("_bitwise")):
+            raise AssertionError(f"a K5 build differs from its plain twin on the {label} mesh")
+        out[label] = row
+        del ref, face_buf, row_major
+    return out
+
+
+def mesh_host(device, calls: int = 2000) -> dict:
+    """Host µs per K5 call, back to back, through three wrappers on the
+    204,800-face grid: ``MeshNormals.__call__``, the free
+    ``vertex_normals``, and the earlier wrapper around the two-launch build."""
+    import time
+
+    from align3d_torch.ops import mesh
+
+    lib = build_variants("mesh.cu", {"two_launch": MESH_VARIANTS["two_launch"]}, _mesh_entry_types)["two_launch"]
+    ev, points, faces, ids = mesh_inputs(device)["grid320"]
+    row_major = ids.t().contiguous()
+
+    def parent(points=points, faces=faces, table=row_major, counts=ev.counts):
+        dev = points.device
+        n, f, d = points.shape[0], faces.shape[0], table.shape[1]
+        _kernels.check_tensor(points, "points", (n, 3), torch.float32, dev)
+        _kernels.check_tensor(faces, "faces", (f, 3), torch.int32, dev)
+        _kernels.check_tensor(table, "table", (n, d), torch.int32, dev)
+        _kernels.check_tensor(counts, "counts", (n,), torch.float32, dev)
+        face_buf = torch.empty((f + 1, 3), dtype=torch.float32, device=dev)
+        res = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        _kernels.check(lib.a3d_mesh_normals(
+            points.data_ptr(), faces.data_ptr(), f, table.data_ptr(), counts.data_ptr(), n, d,
+            face_buf.data_ptr(), res.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+            "a3d_mesh_normals")
+        return res
+
+    wrappers = {"mesh_normals_call": lambda: ev(points),
+                "vertex_normals": lambda: mesh.vertex_normals(points, ev.table, ev.counts),
+                "two_launch_wrapper": parent}
+    out = {"faces": faces.shape[0], "calls": calls}
+    for name in ("two_launch_wrapper", "mesh_normals_call", "vertex_normals", "vertex_normals", "mesh_normals_call",
+                 "two_launch_wrapper"):
+        fn = wrappers[name]
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out.setdefault(f"{name}_host_us", []).append(host / calls * 1e6)
+    return out
+
+
+def table_gather(device) -> dict:
+    """P2's table mode, built and run several ways (see the module docstring)."""
+    from align3d_torch.tools import roofline as rl
+
+    variants = {"ilp4_u16": {}, "ilp8_u8": {"A3D_TABLE_ILP": 8, "A3D_TABLE_U": 8},
+                "ilp16_u4": {"A3D_TABLE_ILP": 16, "A3D_TABLE_U": 4},
+                "ilp4_u16_min8": {"A3D_TABLE_MIN_BLOCKS": 8}, "sector32": {"A3D_TABLE_SECTOR": 1},
+                "l2fetch": {"A3D_ABLATE_L2_FETCH": 1}}
+    chains = {"ilp8_u8": (8, 8), "ilp16_u4": (16, 4)}
+    libs = build_variants("roofline.cu", variants, lambda name: {
+        "a3d_gather_table": _kernels._SIGNATURES["a3d_gather_table"],
+        **({"a3d_l2_fetch_granularity": [_I, ctypes.POINTER(_I)]} if name == "l2fetch" else {})})
+    p = rl.Probes(device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def run(name, table, steps):
+        res = torch.empty_like(p.table_x)
+        _kernels.check(libs[name].a3d_gather_table(table.data_ptr(), table.numel(), p.table_x.data_ptr(),
+                                                   res.data_ptr(), p.table_n, steps, stream), "a3d_gather_table")
+        return res
+
+    def granularity(nbytes: int) -> int:
+        old = _I(0)
+        _kernels.check(libs["l2fetch"].a3d_l2_fetch_granularity(nbytes, ctypes.byref(old)),
+                       "a3d_l2_fetch_granularity")
+        return old.value
+
+    out = {"bitwise": {}}
+    for name in variants:
+        table = p.tables["hbm"]
+        if name == "sector32":  # the twin of a table whose every entry is its sector's sum (int32 wraps)
+            sums = table.view(-1, 8).to(torch.int64).sum(1).repeat_interleave(8)
+            table = (((sums & 0xFFFFFFFF) + 2**31) % 2**32 - 2**31).to(torch.int32)
+            del sums
+        ref = rl.table_gather_plain(table, p.table_x, 1, *chains.get(name, (rl.TABLE_ILP, rl.TABLE_U)))
+        del table
+        out["bitwise"][name] = torch.equal(run(name, p.tables["hbm"], 1), ref)
+    if not all(out["bitwise"].values()):
+        raise AssertionError(f"a P2 build differs from its twin: {out['bitwise']}")
+    default = granularity(32)
+    granularity(default)
+    out["l2_fetch_granularity_default"] = default
+    order = [*variants, "l2fetch_32"]
+    for mode, table in p.tables.items():
+        steps = rl.TABLE_STEPS[mode]
+        gathers = p.table_n * rl.TABLE_ILP * rl.TABLE_U * steps
+        row = {"gathers": gathers, "table_bytes": table.numel() * 4}
+        for name in order + order[::-1]:
+            if name == "l2fetch_32":
+                granularity(32)
+            try:
+                ms = rl.time_ms(lambda n=name.removesuffix("_32"), t=table, s=steps: run(n, t, s))
+            finally:
+                if name == "l2fetch_32":
+                    granularity(default)
+            row.setdefault(f"{name}_ms", []).append(ms)
+            row.setdefault(f"{name}_gathers_per_s", []).append(gathers / ms * 1e3)
+            if mode == "hbm":
+                row.setdefault(f"{name}_share_of_bound", []).append(rl.table_bound_ms(gathers) / ms)
+        if mode == "hbm":
+            row["bound_ms"] = rl.table_bound_ms(gathers)
+        out[mode] = row
+    del p
+    return out
+
+
+SECTIONS = {"splat_exact": splat_exact, "tap_packs": tap_packs, "slice_composition": slice_composition,
+            "slice_pixels": slice_pixels, "mesh_designs": mesh_designs, "mesh_host": mesh_host,
+            "table_gather": table_gather}
+
+
+def main(argv: list[str] | None = None) -> int:
+    names = sys.argv[1:] if argv is None else argv
+    unknown = [n for n in names if n not in SECTIONS]
+    if unknown:
+        print(f"FAIL: unknown comparisons {unknown}; choose from {list(SECTIONS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("FAIL: the ablation tool needs a CUDA device", file=sys.stderr)
         return 1
     from align3d_torch.tools.roofline import card
 
     device = torch.device("cuda")
-    print(json.dumps({"ablate": {"card": card(), "splat_exact": splat_exact(device), "tap_packs": tap_packs(device),
-                                 "slice_composition": slice_composition(device),
-                                 "slice_pixels": slice_pixels(device)}}))
+    result = {"card": card()}
+    for name in names or SECTIONS:
+        result[name] = SECTIONS[name](device)
+    print(json.dumps({"ablate": result}))
     return 0
 
 

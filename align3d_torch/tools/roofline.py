@@ -14,7 +14,12 @@ accounting. The rates:
   port gathers from: ``lane`` (shared memory, the TPU probe's own
   arithmetic), ``l2`` (a table of one pair's target pack, ~25 MB, which the
   50 MB L2 holds: K1 at B = 1, K3) and ``hbm`` (a table of the batch-64
-  packs, ~1.6 GB: K1 at B = 64); gathers/s and GB/s of the 4-byte elements;
+  packs, ~1.6 GB: K1 at B = 64); gathers/s, GB/s of the 4-byte elements and
+  of the 32-byte sectors they move. Bounds: ``hbm`` one 32-byte sector a
+  gather over the published HBM rate (:func:`table_bound_ms`); ``lane`` one
+  4-byte shared-memory load and one store a gather over 32 banks x 132 SMs
+  at the SM clock ``nvidia-smi`` reports as its maximum
+  (:func:`lane_bound_ms`); ``l2`` none (no published L2 rate);
 * two yardsticks, not kernels: a bf16 4096^3 ``torch.matmul`` and a 512 MB
   elementwise stream (read + write).
 
@@ -55,6 +60,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 SMS = 132
+SMEM_BANKS = 32  # 4-byte shared-memory accesses per SM per clock
+SECTOR_BYTES = 32  # what one random 4-byte gather moves from L2 or HBM
 PACK_BYTES_PER_PIXEL = 80  # K1's target pack: 8 + 12 float32 channels
 PAIR_PIXELS = 640 * 480
 
@@ -155,16 +162,17 @@ def _mix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def table_indices(n: int, steps: int, m: int, device) -> torch.Tensor:
-    """The table mode's gather indices, (steps, TABLE_U, TABLE_ILP, n) int64:
-    per (element, chain, step) a linear congruential sequence seeded from a
-    hash, scaled to [0, m) by a multiply-high, as the kernel makes them."""
+def table_indices(n: int, steps: int, m: int, device, ilp: int = TABLE_ILP, u: int = TABLE_U) -> torch.Tensor:
+    """The table mode's gather indices, (steps, u, ilp, n) int64: per
+    (element, chain, step) a linear congruential sequence seeded from a
+    hash, scaled to [0, m) by a multiply-high, as the kernel makes them
+    (``ilp`` x ``u`` other than the library's: the ablation's builds)."""
     e = torch.arange(n, dtype=torch.int64, device=device)
-    out = torch.empty((steps, TABLE_U, TABLE_ILP, n), dtype=torch.int64, device=device)
+    out = torch.empty((steps, u, ilp, n), dtype=torch.int64, device=device)
     for s in range(steps):
-        for i in range(TABLE_ILP):
-            st = _mix32(((s * n + e) * TABLE_ILP + i) & _M32)
-            for k in range(TABLE_U):
+        for i in range(ilp):
+            st = _mix32(((s * n + e) * ilp + i) & _M32)
+            for k in range(u):
                 st = (st * 1664525 + 1013904223) & _M32
                 out[s, k, i] = (st * m) >> 32
     return out
@@ -174,16 +182,16 @@ def _wrap32(t: torch.Tensor) -> torch.Tensor:
     return (((t & _M32) + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
-def table_gather_plain(table: torch.Tensor, x: torch.Tensor, steps: int) -> torch.Tensor:
-    """The twin of P2's table mode: per element, chains a_i = x + i,
-    TABLE_U times a_i += table[idx], summed over chains and steps (int32
-    sums wrap)."""
-    idx = table_indices(x.numel(), steps, table.numel(), x.device)
+def table_gather_plain(table: torch.Tensor, x: torch.Tensor, steps: int, ilp: int = TABLE_ILP,
+                       u: int = TABLE_U) -> torch.Tensor:
+    """The twin of P2's table mode: per element, chains a_i = x + i, u times
+    a_i += table[idx], summed over chains and steps (int32 sums wrap)."""
+    idx = table_indices(x.numel(), steps, table.numel(), x.device, ilp, u)
     total = torch.zeros_like(x, dtype=torch.int64)
     for s in range(steps):
-        for i in range(TABLE_ILP):
+        for i in range(ilp):
             a = x.to(torch.int64) + i
-            for k in range(TABLE_U):
+            for k in range(u):
                 a = a + table[idx[s, k, i]].to(torch.int64)
             total = total + a
     return _wrap32(total)
@@ -205,6 +213,20 @@ def table_gather(table: torch.Tensor, x: torch.Tensor, steps: int) -> torch.Tens
     return out
 
 
+def table_bound_ms(gathers: int) -> float:
+    """The least time of ``gathers`` random 4-byte gathers from HBM: each
+    moves one 32-byte sector (the least the memory moves), at the published
+    rate."""
+    return gathers * SECTOR_BYTES / PEAK_HBM_BYTES * 1e3
+
+
+def lane_bound_ms(gathers: int, sm_clock_hz: float) -> float:
+    """The least time of ``gathers`` lane-mode gathers: each is one 4-byte
+    shared-memory load and one 4-byte store, and each of the 132 SMs serves
+    32 such accesses (its banks) a clock."""
+    return gathers * 2 / (SMEM_BANKS * SMS * sm_clock_hz) * 1e3
+
+
 # -- measurement on the card -------------------------------------------------
 
 
@@ -216,7 +238,12 @@ def card() -> dict:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
     line = proc.stdout.strip().splitlines()[0]
     name, limit = (part.strip() for part in line.rsplit(",", 1))
-    return {"name": name, "power_limit": limit, "nvidia_smi": line}
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+    if clock.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {clock.stderr.strip()}")
+    return {"name": name, "power_limit": limit, "nvidia_smi": line,
+            "sm_clock_max_mhz": float(clock.stdout.strip().splitlines()[0])}
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -295,8 +322,9 @@ class Probes:
 FMA_STEPS, LANE_STEPS, TABLE_STEPS = 512, 64, {"l2": 8, "hbm": 2}
 
 
-def measure_probes(p: Probes) -> dict:
-    """P1 and P2 at their measured sizes: rates, times and bounds."""
+def measure_probes(p: Probes, sm_clock_hz: float) -> dict:
+    """P1 and P2 at their measured sizes: rates, times and bounds (the lane
+    mode's at ``sm_clock_hz``)."""
     out = {}
     ms = time_ms(lambda: fma_chains(p.fma_x, FMA_STEPS))
     flops = fma_flops(p.fma_n, FMA_STEPS)
@@ -305,14 +333,16 @@ def measure_probes(p: Probes) -> dict:
     ms = time_ms(lambda: lane_gather(p.lane_x, p.lane_idx, LANE_STEPS))
     gathers = p.lane_rows * ROW * LANE_ILP * LANE_U * LANE_STEPS
     out["p2_lane"] = {"ms": ms, "gathers": gathers, "gathers_per_s": gathers / ms * 1e3,
-                      "gbs": gathers * 4 / ms / 1e6, "table_bytes": LANE_ILP * ROW * 4}
+                      "gbs": gathers * 4 / ms / 1e6, "table_bytes": LANE_ILP * ROW * 4,
+                      "bound_ms": lane_bound_ms(gathers, sm_clock_hz), "sm_clock_hz": sm_clock_hz}
     for mode, table in p.tables.items():
         steps = TABLE_STEPS[mode]
         ms = time_ms(lambda t=table, s=steps: table_gather(t, p.table_x, s))
         gathers = p.table_n * TABLE_ILP * TABLE_U * steps
         out[f"p2_{mode}"] = {"ms": ms, "gathers": gathers, "gathers_per_s": gathers / ms * 1e3,
-                             "gbs": gathers * 4 / ms / 1e6, "sector_gbs": gathers * 32 / ms / 1e6,
-                             "table_bytes": table.numel() * 4, "bound_ms": gathers * 4 / PEAK_HBM_BYTES * 1e3}
+                             "gbs": gathers * 4 / ms / 1e6, "sector_gbs": gathers * SECTOR_BYTES / ms / 1e6,
+                             "table_bytes": table.numel() * 4,
+                             "bound_ms": table_bound_ms(gathers) if mode == "hbm" else None}
     return out
 
 
@@ -381,7 +411,7 @@ def measure(device="cuda") -> dict:
         raise RuntimeError("the roofline tool measures a CUDA device and none is available")
     result = {"card": card(), "device": torch.cuda.get_device_name(device)}
     probes = Probes(device)
-    result.update(measure_probes(probes))
+    result.update(measure_probes(probes, result["card"]["sm_clock_max_mhz"] * 1e6))
     del probes
     result.update(yardsticks(device))
     k1 = kernel_sections(device)

@@ -8,21 +8,25 @@ Run from the root of a checkout. Phases, each of which fails the run:
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
    the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
-   K3 (its four instantiations) and K4.
+   K3 (its four instantiations), K4 and K5.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
-   ``torch.profiler`` (for K1-K3 checked to be one launch of the kernel a
-   call and nothing else, as the paths call them), and per-call time of
-   back-to-back calls between one CUDA event pair. K1-K3: sample1 frames 0 and 1, 640x480, the three
+   ``torch.profiler`` (for K1-K3 and K5 checked to be one launch of the
+   kernel a call and nothing else, as the paths call them), and per-call
+   time of back-to-back calls between one CUDA event pair. K1-K3: sample1
+   frames 0 and 1, 640x480, the three
    pyramid levels, the (2, 111, 146, 96) bilateral grid; K3 in both forms,
    (b) on the blurred grid (normalize and cast folded in, bitwise against
    ``_normalize_slice_plain``) as the filter paths call it, (a) on the
    normalized grid as before. K4: payload mode
    on the sample1 frame-0 grid (270,213 points, cell 0.05, band 512) with
    frame 1's 270,282 points as queries; nearest mode at 500k x 500k
-   uniform, cell 0.02, bands 256 and 512. K5: the 204,800-face grid mesh
-   and the teapot. P1 and P2, the roofline probes, against their twins at
-   the sizes the roofline tool measures them (P1 relative, P2 bitwise). K2
+   uniform, cell 0.02, bands 256 and 512. K5 through ``MeshNormals``: the
+   204,800- and 3,276,800-face grid meshes and the teapot, bitwise (the
+   sign of zero included, NaN at the same vertices), and
+   ``compute_vertex_normals`` (several PyTorch calls) beside it. P1 and P2,
+   the roofline probes, against their twins at the sizes the roofline tool
+   measures them (P1 relative, P2 bitwise). K2
    and K3 (both forms) over the 65 sample1 frames of the throughput series
    in one launch each, bitwise against 65 single-frame launches and against
    their plain twins, and their library yardsticks (``index_add_``,
@@ -64,7 +68,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    and activities per GN iteration, K1's device time per launch at B = 64,
    the peak device memory.
 6. The roofline tool (``align3d_torch.tools.roofline``): P1 and P2 rates,
-   the matmul and stream yardsticks, K1 at batch 64 against them.
+   the matmul and stream yardsticks, K1 at batch 64 against them; P2's
+   bounds (hbm: a 32-byte sector a gather; lane: shared-memory banks).
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -103,7 +108,7 @@ MEAN_ANGLE_DEG, MEAN_TRANS = 0.5, 0.01  # tests/test_odometry_accuracy.py bound
 PCL_MAX_ANGLE = 0.1  # pcl ICP against ground truth (pcl_icp.rs:121-136, tests/test_icp.py)
 PCL_ENGINES_ANGLE = 0.02  # banded against hash (tests/test_icp.py::test_pcl_icp_align_banded_engine)
 WAVY_BOUND = 0.01  # rad / m (tests/test_icp.py::test_pcl_icp_banded_large_step_resort)
-MESH_ATOL = 2e-6  # MeshNormals on the card against the CPU path (tests/test_mesh.py)
+MESH_ATOL = 2e-6  # MeshNormals on the card against the CPU path and compute_vertex_normals (tests/test_mesh.py)
 
 FMA_RTOL = 1e-5  # P1 against its twin: fmaf rounds once, the twin twice
 GRID_SAMPLE_ATOL = 0.05  # K3's library yardstick must reproduce the sample this closely (depth units)
@@ -119,7 +124,15 @@ PROFILED_PLAIN_NN = 1  # ... and ~40k profiler events per call
 PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 #: Kernel names in csrc/, by the wrapper that launches them (K3's two forms
 #: are instantiations of one template).
-KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",)}
+KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",),
+                "mesh": ("mesh_normals",)}
+ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
+#: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
+PALLAS_CALLS = {"K1": ["align3d_tpu/ops/icp_pallas_v4.py:508", "align3d_tpu/ops/icp_pallas_v3.py:761"],
+                "K2": ["align3d_tpu/ops/bilateral.py:171"], "K3": ["align3d_tpu/ops/bilateral.py:598"],
+                "K4": ["align3d_tpu/ops/nn_banded.py:370", "align3d_tpu/ops/nn_banded.py:459"],
+                "K5": ["align3d_tpu/ops/mesh.py:356"], "P1": ["tools/roofline_v4.py:68"],
+                "P2": ["tools/roofline_v4.py:118"]}
 PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded"}
 
 
@@ -430,35 +443,38 @@ def check_nn(torch, nn, label, args, payload):
         "are two calls over all N x M pairs)"}
 
 
-def grid_mesh(np, side, freq):
-    """benches/bench_mesh.py's height-field mesh: side 320 has 204,800 faces."""
-    ys, xs = np.meshgrid(np.arange(side + 1), np.arange(side + 1), indexing="ij")
-    zs = np.sin(xs * freq) * np.cos(ys * freq)
-    pts = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3).astype(np.float32)
-    faces = []
-    for r in range(side):
-        base, a = r * (side + 1), np.arange(side)
-        faces.append(np.stack([base + a, base + a + 1, base + side + 1 + a], 1))
-        faces.append(np.stack([base + a + 1, base + side + 2 + a, base + side + 1 + a], 1))
-    return pts, np.concatenate(faces).astype(np.int32)
-
-
 def check_mesh(torch, mesh, label, pts, faces):
+    """K5 through ``MeshNormals`` against its twin, bitwise with the sign of
+    zero and NaN at the same vertices; ``compute_vertex_normals`` (several
+    PyTorch calls: face normals, ``index_add_``, ``bincount``, a division)
+    timed beside it as a composed yardstick, within MESH_ATOL."""
+    from align3d_torch.tools.ablate import same_bits
+
     ev = mesh.MeshNormals(faces, pts.shape[0], device=DEVICE)
     points = torch.from_numpy(pts).to(DEVICE)
-    args = (points, ev.faces, ev.table, ev.counts)
-    got, ref = mesh.vertex_normals(*args), mesh.vertex_normals_plain(*args)
+    args = (points, ev.table, ev.counts)
+    got, ref = ev(points), mesh.vertex_normals_plain(*args)
+    faces_t = torch.from_numpy(faces).to(DEVICE)
+    composed = mesh.compute_vertex_normals(points, faces_t)
     torch.cuda.synchronize()
-    same = torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    same = same_bits(got, ref)
     err = float((torch.nan_to_num(got) - torch.nan_to_num(ref)).abs().max())
-    print(f"K5 {label}: {faces.shape[0]} faces, degree {ev.degree}, bitwise = {same}")
+    composed_err = float((torch.nan_to_num(got) - torch.nan_to_num(composed)).abs().max())
+    print(f"K5 {label}: {faces.shape[0]} faces, {pts.shape[0]} vertices, degree {ev.degree}, bitwise = {same}; "
+          f"compute_vertex_normals max |diff| {composed_err}")
     if not same:
         raise AssertionError(f"K5 {label} differs from its plain twin")
-    # Bytes: points, faces, incidence table, counts and output once; ~30 flops a face.
+    if not (torch.equal(torch.isnan(got), torch.isnan(composed)) and composed_err <= MESH_ATOL):
+        raise AssertionError(f"K5 {label} differs from compute_vertex_normals")
+    # Bytes: points, corner table, counts and output once; ~30 flops a face.
     b = bound(sum(t.numel() * t.element_size() for t in args) + got.numel() * 4, faces.shape[0] * 30)
-    return err, timings(torch, lambda: mesh.vertex_normals(*args)), timings(torch, lambda: mesh.vertex_normals_plain(*args)), b, {
-        "library_ms": None, "library_reason": "no PyTorch call computes vertex normals (face normals, then a "
-        "scatter, then a division)"}
+    composed_ms, composed_call_ms = timings(torch, lambda: mesh.compute_vertex_normals(points, faces_t))
+    return err, timings(torch, lambda: ev(points), kernel=KERNEL_NAMES["mesh"][0]), timings(
+        torch, lambda: mesh.vertex_normals_plain(*args)), b, {
+        "library_ms": None, "library_reason": "no one PyTorch call computes vertex normals",
+        "composed_ms": composed_ms, "composed_call_ms": composed_call_ms,
+        "composed_call": "ops/mesh.py::compute_vertex_normals: face normals, index_add_, bincount and a division "
+                         "(several calls)", "composed_max_abs_diff": composed_err}
 
 
 def wavy(torch, Transform, side=100):
@@ -617,9 +633,9 @@ def profile_frames(torch, dataset, builder, params) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(torch, prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    kernel_us = {key: sum(e.time_range.elapsed_us() for e in events if any(k in e.name for k in names))
-                 for key, names in KERNEL_NAMES.items()}
-    kernel_launches = {key: sum(names[0] in e.name for e in events) for key, names in KERNEL_NAMES.items()}
+    kernel_us = {key: sum(e.time_range.elapsed_us() for e in events if any(k in e.name for k in KERNEL_NAMES[key]))
+                 for key in ODOMETRY_KERNELS}
+    kernel_launches = {key: sum(KERNEL_NAMES[key][0] in e.name for e in events) for key in ODOMETRY_KERNELS}
     n = len(frames)
     return {
         "host_ms_per_frame": host,
@@ -628,8 +644,8 @@ def profile_frames(torch, dataset, builder, params) -> dict:
         "device_busy_share": busy_ms / wall_ms,
         "device_activities_per_frame": len(events) / n,
         "kernel_device_us_per_launch": {key: kernel_us[key] / max(kernel_launches[key], 1)
-                                        for key in KERNEL_NAMES},
-        "kernel_launches_per_frame": {key: kernel_launches[key] / n for key in KERNEL_NAMES},
+                                        for key in ODOMETRY_KERNELS},
+        "kernel_launches_per_frame": {key: kernel_launches[key] / n for key in ODOMETRY_KERNELS},
     }
 
 
@@ -1043,9 +1059,12 @@ def main() -> int:
                            nn_args(torch, nn, grid500, q500, bw, False), False) for bw in (256, 512)}
     del db500, q500, grid500
     done("phase 3, K4")
-    mesh_pts, mesh_faces = grid_mesh(np, 320, 0.1)
+    from align3d_torch.tools.ablate import grid_mesh
+
+    mesh_pts, mesh_faces = grid_mesh(320)
     teapot = read_ply(ROOT / "tests" / "data" / "teapot.ply")
     mesh_grid = check_mesh(torch, mesh, "grid mesh", mesh_pts, mesh_faces)
+    mesh_big = check_mesh(torch, mesh, "grid mesh, side 1280", *grid_mesh(1280))
     mesh_teapot = check_mesh(torch, mesh, "teapot", teapot.points, teapot.faces.astype(np.int32))
     torch.cuda.synchronize()
     done("phase 3, K5")
@@ -1129,6 +1148,11 @@ def main() -> int:
     launches["p1"], launches["p2"] = rl.FMA_LAUNCHES, rl.GATHER_LAUNCHES
     if min(launches["p1"], launches["p2"]) <= 0:
         return fail(f"a roofline probe never launched: {launches}")
+    p2, lane = roof["p2_hbm"], roof["p2_lane"]
+    print(f"P2 bounds: hbm {p2['bound_ms']} ms for {p2['gathers']} gathers at {rl.SECTOR_BYTES} B a gather "
+          f"(at 4 B a gather it read {p2['gathers'] * 4 / PEAK_BYTES * 1e3} ms), measured {p2['ms']} ms, "
+          f"{p2['bound_ms'] / p2['ms']:.3f} of it; lane {lane['bound_ms']} ms at {lane['sm_clock_hz'] / 1e6:.0f} MHz "
+          f"(one shared load and one store a gather, 32 banks x 132 SMs), measured {lane['ms']} ms")
     done("phase 6")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
@@ -1138,6 +1162,7 @@ def main() -> int:
     def entry(name, source, replaces, key, checked, err_kind, **extra):
         err, (ms, call_ms), (plain_ms, plain_call_ms), bnd, lib = checked
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "pallas_calls": PALLAS_CALLS[name.split("(")[-1].rstrip(")")],
                 "launches": launches[key], "max_abs_err": err, "err": err_kind,
                 # ms / plain_ms: device time per call (torch.profiler), None where
                 # it saw none; *_call_ms: per-call time of back-to-back calls.
@@ -1152,7 +1177,6 @@ def main() -> int:
     k1_64 = roof["k1_batch64"]
     frames = batched_bil["batch"]
     gh, gw = bil._grid_dims(480, 640, bil.BilateralFilter.sigma_space)
-    p2 = roof["p2_hbm"]
 
     kernels = [
         entry("icp_step_fused (K1)", "align3d_torch/csrc/icp_step.cu", "align3d_tpu/ops/icp_pallas_v4.py:96",
@@ -1205,23 +1229,24 @@ def main() -> int:
               shapes={"nearest_500k_band256": shape_times(nn_500[256]),
                       "nearest_500k_band512": shape_times(nn_500[512])}),
         entry("mesh_normals (K5)", "align3d_torch/csrc/mesh.cu", "align3d_tpu/ops/mesh.py:243",
-              "mesh", mesh_grid, "max |kernel - plain| (NaN at the same vertices)",
-              shapes={"teapot": shape_times(mesh_teapot)}),
+              "mesh", mesh_grid, "max |kernel - plain| (bitwise, the sign of zero included; NaN at the same vertices)",
+              ptxas=ptxas["mesh"],
+              shapes={"grid1280_3276800_faces": shape_times(mesh_big), "teapot": shape_times(mesh_teapot)}),
         # P1 and P2 at the roofline tool's sizes; their twins timed at the same
         # sizes with CUDA events around one call (phase 3).
         {"name": "fma_peak (P1)", "route": "cuda", "source": "align3d_torch/csrc/roofline.cu",
-         "replaces": "tools/roofline_v4.py:52", "launches": launches["p1"],
+         "replaces": "tools/roofline_v4.py:52", "pallas_calls": PALLAS_CALLS["P1"], "launches": launches["p1"],
          "max_abs_err": probes["p1_max_rel_err"], "err": "max |kernel - plain| / |plain|",
          "ms": roof["p1"]["ms"], "plain_ms": probes["p1_plain_ms"], "tflops": roof["p1"]["tflops"],
          **bound(0, roof["p1"]["flops"]),
          "library_ms": None, "library_reason": "no PyTorch call runs dependent FMA chains"},
         {"name": "gather_peak (P2)", "route": "cuda", "source": "align3d_torch/csrc/roofline.cu",
-         "replaces": "tools/roofline_v4.py:98", "launches": launches["p2"],
+         "replaces": "tools/roofline_v4.py:98", "pallas_calls": PALLAS_CALLS["P2"], "launches": launches["p2"],
          "max_abs_err": probes["p2_max_abs_err"],
          "err": "max |kernel - plain| of the integer sums over the lane, l2 and hbm modes",
          "err_by_mode": probes["p2_errs"],
          "ms": p2["ms"], "plain_ms": probes["p2_plain_ms"], "mode": "hbm", "gathers_per_s": p2["gathers_per_s"],
-         **bound(p2["gathers"] * 4, 0),
+         **bound(p2["gathers"] * rl.SECTOR_BYTES, 0),  # one 32-byte sector a gather
          "library_ms": probes["p2_library_ms"], "library_call": "torch.gather of the same indices",
          "modes": {m: roof[f"p2_{m}"] for m in ("lane", "l2", "hbm")}},
     ]

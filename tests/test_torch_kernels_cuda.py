@@ -181,6 +181,33 @@ def test_icp_step_kernel_batch_equals_single(pyramids, cuda_device):
     assert torch.equal(batched, torch.cat(singles))
 
 
+@pytest.mark.parametrize("case", ["at", "inside", "outside", "nan"])
+def test_icp_step_kernel_gate_boundary(cuda_device, case):
+    """K1 against its twin with the normal-angle gate exactly on its
+    threshold (tests/_torch_gate_cases.py; the CPU twin is held against JAX
+    there, tests/test_torch_gates.py): rejected at angle >= threshold, kept
+    at a NaN angle. The threshold is arccos(c) as the card rounds it."""
+    from align3d_torch.camera import CameraIntrinsics
+    from _torch_gate_cases import COSINE, H, IMAGE_KEEPS, INTRINSICS, W, dot_cases, image_inputs
+
+    thr = float(torch.arccos(torch.tensor(COSINE, device=cuda_device)))
+    dot = dot_cases()[case]
+    angle = float(torch.arccos(torch.tensor(dot, device=cuda_device)))
+    assert {"at": angle == thr, "inside": angle < thr, "outside": angle > thr, "nan": angle != angle}[case]
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in image_inputs(dot).items()}
+    params = MsIcpParams.default()[0].replace(max_normal_angle=thr)
+    args = (torch.eye(3, device=cuda_device)[None], torch.zeros((1, 3), device=cuda_device), t["points"][None],
+            t["mask"][None].to(torch.uint8), t["intensity"][None],
+            pack_geometry(t["target_points"], t["target_normals"], t["target_mask"])[None],
+            t["intensity_map"][None].contiguous(), H, W, CameraIntrinsics(**INTRINSICS, width=W, height=H), params)
+    before = icp_fused.LAUNCHES
+    got = icp_fused.icp_step_fused(*args)
+    assert icp_fused.LAUNCHES == before + 1
+    ref = icp_fused.icp_step_plain(*args)
+    assert float(got[0, 0, 7, 7]) == float(ref[0, 0, 7, 7]) == float(IMAGE_KEEPS[case])
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_reject_bad_inputs(depth_frames):
     depth = depth_frames["deep"]
     with pytest.raises(ValueError):
@@ -319,6 +346,13 @@ def _meshes():
     }
 
 
+def _same_bits(a, b):
+    """Equal bit for bit, the sign of zero included; NaN at the same places
+    (0/0 gives another NaN pattern on the card than on the CPU)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
 @pytest.mark.parametrize("name", ["teapot", "grid320", "random_isolated", "fan_degree40"])
 def test_mesh_kernel_bitwise(cuda_device, name):
     pts, faces = _meshes()[name]
@@ -327,32 +361,88 @@ def test_mesh_kernel_bitwise(cuda_device, name):
     before = mesh.LAUNCHES
     got = ev(points)
     assert mesh.LAUNCHES == before + 1
-    ref = mesh.vertex_normals_plain(points, ev.faces, ev.table, ev.counts)
-    # Bitwise, NaN at the same (isolated) vertices.
-    assert torch.equal(torch.isnan(got), torch.isnan(ref))
-    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
-    again = ev(points)
-    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
+    ref = mesh.vertex_normals_plain(points, ev.table, ev.counts)
+    # Bitwise with the sign of zero, NaN at the same (isolated) vertices.
+    assert _same_bits(got, ref)
+    assert _same_bits(ev(points), got)
+    assert _same_bits(mesh.vertex_normals(points, ev.table, ev.counts), got)
     # And the CPU evaluator gives the same, bitwise.
     cpu = mesh.MeshNormals(faces, pts.shape[0], device="cpu")(torch.from_numpy(pts))
-    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(cpu))
-    assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(cpu))
+    assert _same_bits(got.cpu(), cpu)
+
+
+def test_mesh_kernel_is_one_launch(cuda_device):
+    """A MeshNormals call issues one launch of K5 and no other device work."""
+    from align3d_torch.tools.roofline import device_ms
+
+    pts, faces = _meshes()["grid320"]
+    ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
+    points = torch.from_numpy(pts).to(cuda_device)
+    ms, seen = device_ms(lambda: ev(points), 10, "mesh_normals")  # raises on any other activity
+    assert ms is not None and 1 <= seen <= 10
+
+
+def test_mesh_kernel_bitwise_3m_faces(cuda_device):
+    """The 3,276,800-face grid (side 1280, 1,640,961 vertices, degree 6)."""
+    pts, faces = _grid_mesh(1280, 0.1)
+    ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
+    assert ev.degree == 6 and tuple(ev.table.shape) == (6, 1_640_961, 2)
+    points = torch.from_numpy(pts).to(cuda_device)
+    assert _same_bits(ev(points), mesh.vertex_normals_plain(points, ev.table, ev.counts))
+
+
+def test_mesh_kernel_padding_adds_positive_zero(cuda_device):
+    """Flat second triangles only (tests/test_torch_mesh.py): -0.0 sums stay
+    -0.0 at full-degree vertices and become +0.0 where a slot pads."""
+    side = 40
+    pts, faces = _grid_mesh(side, 0.1)
+    pts[:, 2] = 0.0
+    faces = faces.reshape(side, 2, side, 3)[:, 1].reshape(-1, 3)
+    ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
+    points = torch.from_numpy(pts).to(cuda_device)
+    got = ev(points)
+    assert _same_bits(got, mesh.vertex_normals_plain(points, ev.table, ev.counts))
+    zero = got == 0.0
+    full = (ev.counts == ev.degree)[:, None] & zero
+    padded = ((ev.counts > 0) & (ev.counts < ev.degree))[:, None] & zero
+    assert torch.signbit(got[full]).any() and not torch.signbit(got[padded]).any()
 
 
 def test_mesh_kernel_rejects_bad_inputs(cuda_device):
     pts, faces = _meshes()["teapot"]
     ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
     points = torch.from_numpy(pts).to(cuda_device)
+    # The evaluator checks the points on every call ...
+    for bad in (points.double(), points[:-1].contiguous(), points.t().contiguous().t(), points.cpu()):
+        with pytest.raises(ValueError):
+            ev(bad)
+    # ... and the free function every tensor: dtype, layout ((D, N, 2), not
+    # (N, D, 2)), contiguity, device.
     with pytest.raises(ValueError):
-        mesh.vertex_normals(points.double(), ev.faces, ev.table, ev.counts)  # dtype
+        mesh.vertex_normals(points.double(), ev.table, ev.counts)
     with pytest.raises(ValueError):
-        mesh.vertex_normals(points, ev.faces.long(), ev.table, ev.counts)  # dtype
+        mesh.vertex_normals(points, ev.table.long(), ev.counts)
     with pytest.raises(ValueError):
-        mesh.vertex_normals(points.t().contiguous().t(), ev.faces, ev.table, ev.counts)  # contiguity
+        mesh.vertex_normals(points, ev.table.transpose(0, 1).contiguous(), ev.counts)
     with pytest.raises(ValueError):
-        mesh.vertex_normals(points, ev.faces, ev.table.cpu(), ev.counts)  # device
+        mesh.vertex_normals(points.t().contiguous().t(), ev.table, ev.counts)
     with pytest.raises(ValueError):
-        ev(points.cpu())  # the topology lives on the card
+        mesh.vertex_normals(points, ev.table.cpu(), ev.counts)
+    with pytest.raises(ValueError):
+        mesh.vertex_normals(points, ev.table, ev.counts[:-1])
+    before = mesh.LAUNCHES
+    ev(points)
+    assert mesh.LAUNCHES == before + 1
+
+
+def test_mesh_ptxas_report(cuda_device):
+    """K5's -Xptxas -v report: registers, no spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    lines = _kernels.ptxas_report("mesh_normals")
+    assert any("registers" in line for line in lines), lines
+    assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
 
 
 # -- the throughput path: K2/K3 over a batch, K1 at batch 64 ------------------------

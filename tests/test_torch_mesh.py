@@ -142,8 +142,32 @@ def test_reference_semantics():
 def test_mesh_normals_degree_and_table():
     pts, faces = _fan_mesh()
     ev = mesh.MeshNormals(faces, pts.shape[0], device="cpu")
-    assert ev.degree == 40 and tuple(ev.table.shape) == (41, 40)
-    assert int(ev.table[1, 2]) == faces.shape[0]  # a rim vertex has 2 faces; the rest is padding
+    # Slot-major: row d holds every vertex's d-th incident face (K5's warps
+    # read a row segment per slot), two words a slot.
+    assert ev.degree == 40 and tuple(ev.table.shape) == (40, 41, 2)
+    ids, place, counts = mesh.incidence(faces, pts.shape[0])
+    assert int(ids[2, 1]) == faces.shape[0] and place[2, 1] == mesh.PAD  # a rim vertex has 2 faces
+    assert ids[:, 0].tolist() == list(range(40)) and (place[:, 0] == 0).all()  # the hub's faces, in face order
+    assert (ev.table[2:, 1] == -1).all()  # padding: all ones
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_corner_table_gives_back_the_faces(name):
+    """Each real slot of vertex v puts v at its place and the two other
+    corners after it in cyclic order: the face's corners, in its own order.
+    Faces with a repeated corner are incident once per corner."""
+    pts, faces = CASES[name]()
+    table, counts = mesh.corner_table(faces, pts.shape[0])
+    ids, place, _ = mesh.incidence(faces, pts.shape[0])
+    words = table.view(np.uint32).astype(np.int64)
+    np.testing.assert_array_equal(counts, np.bincount(faces.reshape(-1), minlength=pts.shape[0]))
+    for d, v in zip(*np.nonzero(place != mesh.PAD)):
+        k = place[d, v]
+        assert words[d, v, 0] >> 30 == k
+        corners = [0, 0, 0]
+        corners[k], corners[(k + 1) % 3], corners[(k + 2) % 3] = v, words[d, v, 0] & (2**30 - 1), words[d, v, 1]
+        assert corners == faces[ids[d, v]].tolist()
+    assert (words[place == mesh.PAD] == 0xFFFFFFFF).all()
 
 
 def test_mesh_normals_rejects_bad_input():
@@ -166,3 +190,90 @@ def test_mesh_normals_default_to_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             mesh.MeshNormals(faces, 3)
+
+
+def _fold_numpy(pts, faces):
+    """An independent numpy float32 transcription of K5's fold: each
+    vertex's incident face normals in face order, then a zero (+0.0) for
+    every padding slot up to the largest degree, divided by the count."""
+    fn = mesh.face_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy()
+    incident = [[] for _ in range(pts.shape[0])]
+    for f, corners in enumerate(faces):
+        for v in corners:
+            incident[v].append(f)
+    degree = max(len(i) for i in incident)
+    out = np.empty_like(pts)
+    for v, fs in enumerate(incident):
+        rows = [fn[f] for f in fs] + [np.zeros(3, np.float32)] * (degree - len(fs))
+        acc = rows[0].copy()
+        for r in rows[1:]:
+            acc = acc + r
+        with np.errstate(invalid="ignore"):
+            out[v] = acc / np.float32(len(fs))
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, the sign of zero included; NaN at the same places."""
+    nan = np.isnan(a)
+    return np.array_equal(nan, np.isnan(b)) and np.array_equal(a[~nan].view(np.int32), b[~nan].view(np.int32))
+
+
+def test_padding_slots_add_positive_zero():
+    """On a flat grid the second triangle of each cell has the normal
+    (0, -0.0, 1) (0 * -1 - 0 * 0). Of those triangles alone, a vertex whose
+    slots are all real faces keeps the -0.0 sum, and one with padding slots
+    turns it into +0.0 (the twin's zero row; K5 adds the same zero,
+    test_torch_kernels_cuda.py)."""
+    side = 6
+    pts, faces = _grid_mesh(side=side)
+    pts[:, 2] = 0.0
+    faces = faces.reshape(side, 2, side, 3)[:, 1].reshape(-1, 3)
+    ours = mesh.MeshNormals(faces, pts.shape[0], device="cpu")(torch.from_numpy(pts)).numpy()
+    want = _fold_numpy(pts, faces)
+    assert _same_bits(ours, want)
+    counts = np.bincount(faces.reshape(-1), minlength=pts.shape[0])
+    zero = ours == 0.0
+    full, padded = counts == counts.max(), (counts > 0) & (counts < counts.max())
+    assert np.signbit(ours[full][zero[full]]).any()  # -0.0 kept where nothing pads
+    fn = mesh.face_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy()
+    assert np.signbit(fn[fn == 0.0]).any()
+    # Every padded vertex's zero components are +0.0, whatever its faces gave.
+    assert not np.signbit(ours[padded][zero[padded]]).any()
+    ref = np.asarray(jax_mesh.compute_vertex_normals(jnp.asarray(pts), jnp.asarray(faces)))
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+
+
+def test_isolated_vertex_is_nan():
+    pts, faces = CASES["ridge"]()
+    pts = np.concatenate([pts, [[5.0, 5.0, 5.0]]]).astype(np.float32)  # vertex 4: no face
+    ours = mesh.MeshNormals(faces, 5, device="cpu")(torch.from_numpy(pts)).numpy()
+    ref = np.asarray(jax_mesh.compute_vertex_normals(jnp.asarray(pts), jnp.asarray(faces)))
+    assert np.isnan(ours[4]).all() and np.isfinite(ours[:4]).all()
+    np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+    np.testing.assert_allclose(ours[:4], ref[:4], atol=ATOL, rtol=0)
+    assert _same_bits(ours, _fold_numpy(pts, faces))
+
+
+def test_degree_one_vertex_is_its_face_normal():
+    pts, faces = CASES["ridge"]()  # vertices 2 and 3 each belong to one face
+    ev = mesh.MeshNormals(faces, 4, device="cpu")
+    ours = ev(torch.from_numpy(pts)).numpy()
+    fn = mesh.face_normals(torch.from_numpy(pts), torch.from_numpy(faces)).numpy()
+    assert ev.counts.tolist() == [2.0, 2.0, 1.0, 1.0]
+    # The face normal plus the padding slot's +0.0, over 1: the face
+    # normal's bits, but for a -0.0 component, which the zero makes +0.0.
+    assert np.signbit(fn[1, 0]) and not np.signbit(ours[3, 0])
+    assert _same_bits(ours[2], fn[0] + np.float32(0.0)) and _same_bits(ours[3], fn[1] + np.float32(0.0))
+    ref = np.asarray(jax_mesh.compute_vertex_normals(jnp.asarray(pts), jnp.asarray(faces)))
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+
+
+def test_high_degree_fan():
+    pts, faces = _fan_mesh(spokes=300)
+    ev = mesh.MeshNormals(faces, pts.shape[0], device="cpu")
+    assert ev.degree == 300 and tuple(ev.table.shape) == (300, 301, 2)
+    ours = ev(torch.from_numpy(pts)).numpy()
+    ref = np.asarray(jax_mesh.compute_vertex_normals(jnp.asarray(pts), jnp.asarray(faces)))
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+    assert _same_bits(ours, _fold_numpy(pts, faces))

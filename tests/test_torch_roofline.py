@@ -73,22 +73,23 @@ def test_lane_gather_twin_matches_the_tpu_kernel_body():
     np.testing.assert_array_equal(got.numpy(), ref)  # integer sums: bitwise
 
 
-def _table_gather_numpy(table: np.ndarray, x: np.ndarray, steps: int) -> np.ndarray:
+def _table_gather_numpy(table: np.ndarray, x: np.ndarray, steps: int, ilp: int = rl.TABLE_ILP,
+                        u: int = rl.TABLE_U) -> np.ndarray:
     """An independent numpy form of the table mode with uint32 wraparound."""
     n, m = x.size, np.uint64(table.size)
     e = np.arange(n, dtype=np.uint32)
     total = np.zeros(n, np.uint32)
     with np.errstate(over="ignore"):
         for s in range(steps):
-            for i in range(rl.TABLE_ILP):
-                h = (np.uint32(s) * np.uint32(n) + e) * np.uint32(rl.TABLE_ILP) + np.uint32(i)
+            for i in range(ilp):
+                h = (np.uint32(s) * np.uint32(n) + e) * np.uint32(ilp) + np.uint32(i)
                 h ^= h >> np.uint32(16)
                 h *= np.uint32(0x7FEB352D)
                 h ^= h >> np.uint32(15)
                 h *= np.uint32(0x2C1B3C6D)
                 h ^= h >> np.uint32(16)
                 a = x.astype(np.uint32) + np.uint32(i)
-                for _ in range(rl.TABLE_U):
+                for _ in range(u):
                     h = h * np.uint32(1664525) + np.uint32(1013904223)
                     j = (h.astype(np.uint64) * m) >> np.uint64(32)
                     a = a + table[j].astype(np.uint32)
@@ -96,18 +97,59 @@ def _table_gather_numpy(table: np.ndarray, x: np.ndarray, steps: int) -> np.ndar
     return total.view(np.int32)
 
 
+# The library's chains (TABLE_ILP x TABLE_U) and the ablation's other builds.
+@pytest.mark.parametrize("ilp,u", [(rl.TABLE_ILP, rl.TABLE_U), (4, 16), (8, 8), (16, 4)])
 @pytest.mark.parametrize("m", [1000, 4096, 6_144_000])
-def test_table_gather_twin(m):
+def test_table_gather_twin(m, ilp, u):
     rng = np.random.default_rng(m)
     table = rng.integers(-(2**31), 2**31, size=m, dtype=np.int64).astype(np.int32)
     x = rng.integers(0, 1000, size=777).astype(np.int32)
-    ref = _table_gather_numpy(table, x, steps=2)
-    got = rl.table_gather(torch.from_numpy(table), torch.from_numpy(x), 2)
+    ref = _table_gather_numpy(table, x, 2, ilp, u)
+    if (ilp, u) == (rl.TABLE_ILP, rl.TABLE_U):
+        got = rl.table_gather(torch.from_numpy(table), torch.from_numpy(x), 2)
+    else:
+        got = rl.table_gather_plain(torch.from_numpy(table), torch.from_numpy(x), 2, ilp, u)
     np.testing.assert_array_equal(got.numpy(), ref)
-    idx = rl.table_indices(777, 2, m, "cpu")
+    idx = rl.table_indices(777, 2, m, "cpu", ilp, u)
+    assert tuple(idx.shape) == (2, u, ilp, 777)
     assert int(idx.min()) >= 0 and int(idx.max()) < m
     # Distinct indices per chain: no two chains of an element share a sequence.
     assert not torch.equal(idx[:, :, 0], idx[:, :, 1])
+
+
+def test_gather_bounds_count_sectors_and_banks():
+    """P2's hbm bound counts a 32-byte sector a gather (the 138.4 M gathers
+    of the hbm mode: 1.32 ms at 3.35 TB/s, not the 0.165 ms of 4 bytes), and
+    the lane bound one shared-memory load and one store a gather over 32
+    banks x 132 SMs a clock."""
+    gathers = rl.SMS * 2048 * 4 * rl.TABLE_ILP * rl.TABLE_U * rl.TABLE_STEPS["hbm"]
+    assert gathers == 138_412_032
+    assert rl.table_bound_ms(gathers) == pytest.approx(gathers * 32 / 3.35e12 * 1e3, rel=1e-12)
+    assert rl.table_bound_ms(gathers) == pytest.approx(1.3222, abs=1e-4)
+    assert rl.lane_bound_ms(4224, 1.98e9) == pytest.approx(2 * 4224 / (32 * 132 * 1.98e9) * 1e3, rel=1e-12)
+
+
+def test_measure_probes_reports_the_bounds(monkeypatch):
+    """measure_probes' accounting on tiny CPU probes (time_ms stubbed to
+    1 ms a call; the twins run instead of the kernels)."""
+    import types
+
+    g = torch.Generator().manual_seed(0)
+    p = types.SimpleNamespace(
+        fma_n=256, fma_x=torch.rand(256, generator=g) + 0.5, lane_rows=2,
+        lane_x=torch.randint(0, 1000, (2, rl.ROW), generator=g, dtype=torch.int32),
+        lane_idx=torch.randint(0, rl.ROW, (rl.LANE_ILP, 2, rl.ROW), generator=g, dtype=torch.int32),
+        table_n=64, table_x=torch.randint(0, 1000, (64,), generator=g, dtype=torch.int32),
+        tables={m: torch.randint(0, 1 << 20, (4096,), generator=g, dtype=torch.int32) for m in ("l2", "hbm")})
+    monkeypatch.setattr(rl, "time_ms", lambda fn, reps=10, warmup=2: 1.0)
+    out = rl.measure_probes(p, 1.98e9)
+    hbm = out["p2_hbm"]
+    assert hbm["gathers"] == 64 * rl.TABLE_ILP * rl.TABLE_U * rl.TABLE_STEPS["hbm"]
+    assert hbm["bound_ms"] == rl.table_bound_ms(hbm["gathers"])
+    assert hbm["sector_gbs"] == hbm["gathers"] * 32 / 1e6
+    assert out["p2_l2"]["bound_ms"] is None  # no published L2 rate
+    lane = out["p2_lane"]
+    assert lane["bound_ms"] == rl.lane_bound_ms(2 * rl.ROW * rl.LANE_ILP * rl.LANE_U * rl.LANE_STEPS, 1.98e9)
 
 
 def test_icp_step_bytes_counts_each_input_once():
@@ -148,5 +190,8 @@ def test_ablation_tool_fails_without_a_card(monkeypatch, capsys):
     from align3d_torch.tools import ablate
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert ablate.main() != 0
+    assert ablate.main([]) != 0
+    assert ablate.main(["mesh_designs"]) != 0
+    assert capsys.readouterr().out == ""
+    assert ablate.main(["no_such_comparison"]) != 0
     assert capsys.readouterr().out == ""
