@@ -1,10 +1,13 @@
 """Command line of the port (``align3d-torch``), the ``odometry`` subcommand
 of ``align3d_tpu/cli.py``.
 
-    python -m align3d_torch.cli odometry slamtb tests/data/rgbd/sample1 [max_frames]
+    python -m align3d_torch.cli odometry {slamtb,tum,ilrgbd} <dataset> [max_frames]
+        [--checkpoint PATH [--checkpoint-every N]]
 
 It runs on the GPU (``--device cuda``, the default, which fails when CUDA is
-absent); ``--device cpu`` selects the plain-PyTorch path.
+absent); ``--device cpu`` selects the plain-PyTorch path. Frames decode
+ahead of the aligner in the native loader's worker pool where that library
+builds (:func:`align3d_torch.io.datasets.core.maybe_prefetch`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ def cmd_odometry(args) -> int:
 
     from align3d_torch.icp.params import MsIcpParams
     from align3d_torch.io.datasets import SubsetDataset, load_dataset
+    from align3d_torch.io.datasets.core import PrefetchingDataset, maybe_prefetch
     from align3d_torch.odometry import run_odometry
     from align3d_torch.ops.bilateral import BilateralFilter
     from align3d_torch.range_image import RangeImageBuilder
@@ -36,18 +40,25 @@ def cmd_odometry(args) -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available (pass --device cpu for the CPU path)")
 
-    dataset = load_dataset(args.format, args.dataset)
+    loaded = maybe_prefetch(load_dataset(args.format, args.dataset))
+    dataset = loaded
     if args.max_frames is not None:
-        dataset = SubsetDataset(dataset, range(min(args.max_frames, len(dataset))))
+        dataset = SubsetDataset(loaded, range(min(args.max_frames, len(loaded))))
     builder = RangeImageBuilder(bilateral_filter=None if args.no_bilateral else BilateralFilter())
     params = MsIcpParams.default() if args.engine == "xla" else MsIcpParams.default_tpu(args.engine)
-    result = run_odometry(
-        dataset,
-        args.device,
-        range_builder=builder,
-        icp_params=params,
-        progress=None if args.quiet else _progress_printer(),
-    )
+    try:
+        result = run_odometry(
+            dataset,
+            args.device,
+            range_builder=builder,
+            icp_params=params,
+            progress=None if args.quiet else _progress_printer(),
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+        )
+    finally:
+        if isinstance(loaded, PrefetchingDataset):
+            loaded.close()
     if result.metrics is not None:
         print(f"Mean trajectory error: {result.metrics}")
     print(f"Seconds per frame: {result.seconds_per_frame:.4f}")
@@ -58,12 +69,19 @@ def cmd_odometry(args) -> int:
     return 0
 
 
+def _positive_int(value: str) -> int:
+    v = int(value)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="align3d_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_odo = sub.add_parser("odometry", help="frame-to-frame odometry over a dataset")
-    p_odo.add_argument("format", help="dataset format: slamtb")
+    p_odo.add_argument("format", help="dataset format: ilrgbd, tum, or slamtb")
     p_odo.add_argument("dataset", help="path to the dataset directory")
     p_odo.add_argument("max_frames", nargs="?", type=int, default=None)
     p_odo.add_argument("--no-bilateral", action="store_true")
@@ -84,6 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_odo.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p_odo.add_argument("--quiet", "-q", action="store_true")
     p_odo.add_argument("--save-trajectory", metavar="PATH")
+    p_odo.add_argument(
+        "--checkpoint",
+        metavar="PATH",
+        help="snapshot the in-progress trajectory here and resume from it "
+        "if the file exists (an aborted run continues where it stopped)",
+    )
+    p_odo.add_argument("--checkpoint-every", type=_positive_int, default=10)
     p_odo.set_defaults(fn=cmd_odometry)
     return parser
 

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from align3d_torch.camera import CameraIntrinsics
+from align3d_torch.camera import CameraIntrinsics, PinholeCamera
 from align3d_torch.se3 import Transform
 
 
@@ -29,6 +29,27 @@ class RgbdImage:
     depth: np.ndarray
     depth_scale: float | None = None
 
+    @property
+    def width(self) -> int:
+        return self.color.shape[1]
+
+    @property
+    def height(self) -> int:
+        return self.color.shape[0]
+
+    def downsample(self, sigma: float, device="cuda") -> "RgbdImage":
+        """Half-resolution copy, computed on ``device``: the colour blurred and
+        decimated (:func:`py_scale_down`), the depth bilateral-filtered then
+        decimated (reference ``Downsample for RgbdImage``,
+        src/image/rgbd_image.rs:45-59). Host numpy in, host numpy out."""
+        from align3d_torch.ops.bilateral import BilateralFilter
+
+        color = py_scale_down(torch.from_numpy(self.color).to(device), sigma)
+        depth = BilateralFilter().scale_down(torch.from_numpy(self.depth.astype(np.int32)).to(device))
+        return RgbdImage(
+            color=color.cpu().numpy(), depth=depth.cpu().numpy().astype(self.depth.dtype), depth_scale=self.depth_scale
+        )
+
 
 @dataclasses.dataclass
 class RgbdFrame:
@@ -37,6 +58,25 @@ class RgbdFrame:
     camera: CameraIntrinsics
     image: RgbdImage
     camera_to_world: Transform | None = None
+
+    def get_pinhole_camera(self) -> PinholeCamera | None:
+        """Intrinsics and pose, when the frame has a pose (rgbd_image.rs:88-93)."""
+        if self.camera_to_world is None:
+            return None
+        return PinholeCamera(self.camera, self.camera_to_world)
+
+    def downsample(self, sigma: float, device="cuda") -> "RgbdFrame":
+        """Half resolution on ``device``: the image downsampled, the
+        intrinsics scaled by 0.5 and sized to the decimated image
+        (reference ``Downsample for RgbdFrame``, src/image/rgbd_image.rs:95-106)."""
+        image = self.image.downsample(sigma, device)
+        camera = self.camera.scale(0.5).with_size(image.width, image.height)
+        return RgbdFrame(camera=camera, image=image, camera_to_world=self.camera_to_world)
+
+
+def rgb_to_luma(r, g, b):
+    """Normalized [0, 1] luma (reference src/image/luma.rs:75-79)."""
+    return (r * 0.3 + g * 0.59 + b * 0.11) * (1.0 / 255.0)
 
 
 def rgb_to_luma_u8(rgb: torch.Tensor) -> torch.Tensor:
@@ -88,3 +128,11 @@ def py_scale_down(color: torch.Tensor, sigma: float) -> torch.Tensor:
     # Both passes are evaluated only at the even positions they feed.
     sampled = _blur_axis(_blur_axis(x, -3, lo, weights, 2), -2, lo, weights, 2)
     return torch.clamp(sampled[..., :h2, :w2, :], 0.0, 255.0).to(torch.uint8)
+
+
+def normalize_to_luma_u8(image: torch.Tensor) -> torch.Tensor:
+    """Float image -> u8 by (x - min) / (max - min) * 255, truncating
+    (src/image/luma.rs:9-27)."""
+    image = image.to(torch.float32)
+    mx, mn = torch.max(image), torch.min(image)
+    return (((image - mn) / (mx - mn)) * 255.0).to(torch.uint8)

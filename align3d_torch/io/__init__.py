@@ -1,5 +1,5 @@
-"""Host-side I/O (port of ``align3d_tpu/io``): PNG frames, dataset loaders,
-and PLY/OFF geometry."""
+"""Host-side I/O (port of ``align3d_tpu/io``): PNG frames, the native frame
+loader, dataset loaders, and PLY/OFF geometry."""
 
 from align3d_torch.io.geometry import Geometry
 from align3d_torch.io.off import OffError, read_off

@@ -1,18 +1,28 @@
-"""RGB-D dataset loaders (port of ``align3d_tpu/io/datasets``; SlamTb only so far)."""
+"""RGB-D dataset loaders (port of ``align3d_tpu/io/datasets``; reference
+``src/io/dataset/``)."""
 
-from align3d_torch.io.datasets.core import DatasetError, SubsetDataset
+from align3d_torch.io.datasets.core import DatasetError, RgbdDataset, SubsetDataset
+from align3d_torch.io.datasets.indoor_lidar import IndoorLidarDataset
 from align3d_torch.io.datasets.slamtb import SlamTbDataset
+from align3d_torch.io.datasets.tum import TumRgbdDataset
 
-__all__ = ["SubsetDataset", "DatasetError", "SlamTbDataset", "load_dataset"]
+__all__ = [
+    "RgbdDataset",
+    "SubsetDataset",
+    "DatasetError",
+    "SlamTbDataset",
+    "TumRgbdDataset",
+    "IndoorLidarDataset",
+    "load_dataset",
+]
 
 
-def load_dataset(fmt: str, path: str):
+def load_dataset(fmt: str, path: str) -> RgbdDataset:
     """Format dispatcher (reference ``examples/src/lib.rs:6``)."""
+    if fmt == "ilrgbd":
+        return IndoorLidarDataset.load(path)
+    if fmt == "tum":
+        return TumRgbdDataset.load(path)
     if fmt == "slamtb":
         return SlamTbDataset.load(path)
-    if fmt in ("tum", "ilrgbd"):
-        raise ValueError(
-            f"dataset format {fmt!r} is not ported yet (ROADMAP Queue 1, item 10: "
-            "host I/O, checkpoint and CLI); align3d_torch reads slamtb"
-        )
     raise ValueError(f"Invalid dataset format: {fmt}")

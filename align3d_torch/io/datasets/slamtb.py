@@ -1,6 +1,7 @@
 """SlamTb ``frames.json`` dataset loader (port of ``align3d_tpu/io/datasets/slamtb.py``;
 reference ``src/io/dataset/slamtb.rs``): per-frame K matrix, depth scale and
-4x4 camera-to-world pose. Frames decode with :mod:`align3d_torch.io.png`."""
+4x4 camera-to-world pose. This is the format of the repository's fixtures
+(``tests/data/rgbd/sample1|2``)."""
 
 from __future__ import annotations
 
@@ -11,8 +12,7 @@ import numpy as np
 
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.image import RgbdFrame, RgbdImage
-from align3d_torch.io import png
-from align3d_torch.io.datasets.core import DatasetError
+from align3d_torch.io.datasets.core import DatasetError, load_depth_u16, load_rgb
 from align3d_torch.se3 import Transform
 from align3d_torch.trajectory import Trajectory
 
@@ -48,19 +48,31 @@ class SlamTbDataset:
             scales.append(float(info["depth_scale"]))
         return cls(base_dir, cameras, poses, rgbs, depths, scales)
 
+    def frame_paths(self) -> tuple[list, list]:
+        """Absolute (colour, depth) file paths, for :class:`PrefetchingDataset`."""
+        return (
+            [os.path.join(self.base_dir, f) for f in self.rgb_images],
+            [os.path.join(self.base_dir, f) for f in self.depth_images],
+        )
+
     def __len__(self) -> int:
         return min(len(self.rgb_images), len(self.depth_images))
 
     def get(self, index: int) -> RgbdFrame:
-        rgb = png.read(os.path.join(self.base_dir, self.rgb_images[index]))
-        depth = png.read(os.path.join(self.base_dir, self.depth_images[index]))
-        if rgb.ndim != 3 or depth.ndim != 2:
-            raise DatasetError(f"frame {index}: expected an RGB colour and a 16-bit depth PNG")
+        rgb = load_rgb(os.path.join(self.base_dir, self.rgb_images[index]))
+        depth = load_depth_u16(os.path.join(self.base_dir, self.depth_images[index]))
         return RgbdFrame(
             camera=self.cameras[index],
             image=RgbdImage(rgb, depth, self.depth_scales[index]),
             camera_to_world=self.poses[index],
         )
 
+    def get_meta(self, index: int):
+        """(camera, pose, depth scale) of a frame, without decoding it."""
+        return self.cameras[index], self.poses[index], self.depth_scales[index]
+
     def trajectory(self) -> Trajectory:
         return Trajectory.from_list(self.poses, np.arange(len(self.poses), dtype=np.float32))
+
+    def camera(self, index: int):
+        return self.cameras[index], self.poses[index]

@@ -36,6 +36,9 @@ class TransformMetrics:
         m = cls.new(pred.camera_to_world, gt.camera_to_world)
         return cls(angle=torch.mean(m.angle), translation=torch.mean(m.translation))
 
+    def total(self) -> torch.Tensor:
+        return self.angle + self.translation
+
     def __str__(self) -> str:
         return f"angle: {math.degrees(float(self.angle)):.2f}°, translation: {float(self.translation):.5f}"
 

@@ -421,6 +421,16 @@ class BilateralGrid:
     color_min: int | torch.Tensor  # from_image: a 0-d tensor on the image's device
     depth_limit: int | torch.Tensor  # the true (reference-sized) grid depth, grid.rs:51-54
 
+    @property
+    def data(self) -> torch.Tensor:
+        """The reference's (..., gh, gw, gd, 2) layout (grid.rs ``Array4``), a view."""
+        return torch.movedim(self.data_cm, -4, -1)
+
+    @property
+    def dim(self) -> tuple[int, int, int, int]:
+        c, gh, gw, gd = self.data_cm.shape[-4:]
+        return (gh, gw, gd, c)
+
     @classmethod
     def from_image(cls, image: torch.Tensor, sigma_space: float, sigma_color: float, pad_depth_to: int = 1):
         """One frame's grid sized from its own span; ``color_min`` counts holes."""
@@ -474,6 +484,13 @@ class BilateralFilter:
         from its own span (``color_min`` counts holes)."""
         grid = BilateralGrid.from_image(image, self.sigma_space, self.sigma_color, self.pad_depth_to)
         return grid.convolve().normalize_slice(image)
+
+    def scale_down(self, image: torch.Tensor) -> torch.Tensor:
+        """:meth:`filter`, then keep every other row and column
+        (edge_aware_filter.rs:137-147)."""
+        filtered = self.filter(image)
+        h, w = filtered.shape
+        return filtered[: h // 2 * 2 : 2, : w // 2 * 2 : 2]
 
     def filter_static(self, image: torch.Tensor, color_min, grid_depth: int, depth_limit=None) -> torch.Tensor:
         """:meth:`filter` of one (H, W) frame at a caller-fixed grid depth and

@@ -46,6 +46,9 @@ class RangeImage:
     def device(self) -> torch.device:
         return self.points.device
 
+    def valid_points_count(self) -> torch.Tensor:
+        return torch.sum(self.mask.to(torch.int32))
+
     @classmethod
     def from_rgbd(
         cls,
@@ -64,6 +67,16 @@ class RangeImage:
         points = intrinsics.backproject_grid(z)
         points = torch.where(mask[..., None], points, 0.0)
         return cls(points=points, mask=mask, intrinsics=intrinsics, colors=color)
+
+    @classmethod
+    def from_frame(cls, frame: RgbdFrame, device="cuda") -> "RangeImage":
+        """Upload one frame to ``device`` and backproject it."""
+        return cls.from_rgbd(
+            frame.camera,
+            torch.from_numpy(frame.image.color).to(device),
+            torch.from_numpy(frame.image.depth.astype("int32")).to(device),
+            float(frame.image.depth_scale),
+        )
 
     def with_normals(self) -> "RangeImage":
         return dataclasses.replace(self, normals=normals_ops.compute_normals(self.points, self.mask))

@@ -208,11 +208,18 @@ class Transform:
             return points @ self.rotation.T + self.translation
         return _mv(self.rotation, points) + self.translation
 
+    def apply_batch(self, points: torch.Tensor) -> torch.Tensor:
+        """Batched transform: self (..., 3, 3) applied to points (..., N, 3)."""
+        return torch.einsum("...ij,...nj->...ni", self.rotation, points) + self.translation[..., None, :]
+
     def apply_normals(self, normals: torch.Tensor) -> torch.Tensor:
         """Rotate-only transform for normals (src/transform.rs:151)."""
         if normals.ndim >= 2 and self.rotation.ndim == 2:
             return normals @ self.rotation.T
         return _mv(self.rotation, normals)
+
+    def apply_normals_batch(self, normals: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("...ij,...nj->...ni", self.rotation, normals)
 
     # -- conversions / metrics ------------------------------------------
     def to_matrix4(self) -> torch.Tensor:
@@ -234,9 +241,17 @@ class Transform:
     def to(self, device) -> "Transform":
         return Transform(self.rotation.to(device), self.translation.to(device))
 
+    def numpy_matrix4(self) -> np.ndarray:
+        """:meth:`to_matrix4` as a host numpy array."""
+        return self.to_matrix4().cpu().numpy()
+
     @property
     def device(self) -> torch.device:
         return self.rotation.device
+
+    @property
+    def batch_shape(self) -> tuple:
+        return tuple(self.rotation.shape[:-2])
 
     def __getitem__(self, idx) -> "Transform":
         return Transform(self.rotation[idx], self.translation[idx])

@@ -24,12 +24,12 @@ its own, so the sample2 pairs of the mixed series are metric.
 from __future__ import annotations
 
 import dataclasses
-import os
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from align3d_torch import config
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.io.datasets import SlamTbDataset
 from align3d_torch.ops.bilateral import plan_depth_buckets
@@ -37,7 +37,7 @@ from align3d_torch.range_image import RangeImage, build_pyramid_impl
 from align3d_torch.se3 import Transform, stack
 
 #: The fixture tree: the repository's ``tests/data`` unless ``ALIGN3D_REF_DATA`` names another.
-DATA = Path(os.environ.get("ALIGN3D_REF_DATA", Path(__file__).resolve().parents[2] / "tests" / "data"))
+DATA = Path(config.REF_DATA_DIR)
 SERIES_FRAMES = 65
 
 

@@ -31,6 +31,10 @@ class Trajectory:
         return self.camera_to_world[idx]
 
     @classmethod
+    def empty(cls) -> "Trajectory":
+        return cls(Transform(torch.zeros((0, 3, 3)), torch.zeros((0, 3))), torch.zeros((0,)))
+
+    @classmethod
     def from_list(cls, poses: list[Transform], times=None) -> "Trajectory":
         device = poses[0].device
         if times is None:
@@ -58,6 +62,11 @@ class Trajectory:
 
     def slice(self, start: int, end: int) -> "Trajectory":
         return Trajectory(self.camera_to_world[start:end], self.times[start:end])
+
+    def last(self) -> tuple[Transform, float] | None:
+        if len(self) == 0:
+            return None
+        return self.camera_to_world[-1], float(self.times[-1])
 
     def to_tum(self) -> str:
         """TUM trajectory text: ``t tx ty tz qx qy qz qw`` per line."""
@@ -131,19 +140,46 @@ def accumulate_scan(relative: Transform, start: Transform | None = None, times=N
 
 
 class TrajectoryBuilder:
-    """Odometry accumulator (reference src/trajectory.rs:131-184)."""
+    """Odometry accumulator (reference src/trajectory.rs:131-184). Without a
+    start pose the fold starts from the identity, made on the device of the
+    first accumulated transform."""
 
-    def __init__(self, start: Transform, start_time: float = 0.0):
-        self._poses: list[Transform] = [start]
-        self._times: list[float] = [start_time]
+    def __init__(self, start: Transform | None = None, start_time: float = 0.0):
+        self._poses: list[Transform] = []
+        self._times: list[float] = []
+        if start is not None:
+            self._poses.append(start)
+            self._times.append(start_time)
         self._last = start
         self._last_time = start_time
 
+    @classmethod
+    def with_start(cls, start: Transform, start_time: float) -> "TrajectoryBuilder":
+        return cls(start=start, start_time=start_time)
+
+    @classmethod
+    def from_trajectory(cls, traj: Trajectory) -> "TrajectoryBuilder":
+        """Resume accumulation from an existing trajectory, on its device
+        (checkpoint restore): the fold continues from its last pose."""
+        builder = cls()
+        builder._poses = [traj.camera_to_world[k] for k in range(len(traj))]
+        builder._times = [float(t) for t in traj.times]
+        if builder._poses:
+            builder._last = builder._poses[-1]
+            builder._last_time = builder._times[-1]
+        return builder
+
     def accumulate(self, now_to_previous: Transform, timestamp: float | None = None) -> None:
-        self._last = now_to_previous @ self._last
+        last = self._last if self._last is not None else Transform.identity(device=now_to_previous.device)
+        self._last = now_to_previous @ last
         self._last_time = timestamp if timestamp is not None else self._last_time + 1.0
         self._poses.append(self._last)
         self._times.append(self._last_time)
 
+    def current_camera_to_world(self) -> Transform | None:
+        return self._poses[-1] if self._poses else None
+
     def build(self) -> Trajectory:
+        if not self._poses:
+            return Trajectory.empty()
         return Trajectory.from_list(self._poses, np.asarray(self._times, np.float32))

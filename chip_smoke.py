@@ -70,6 +70,17 @@ Run from the root of a checkout. Phases, each of which fails the run:
 6. The roofline tool (``align3d_torch.tools.roofline``): P1 and P2 rates,
    the matmul and stream yardsticks, K1 at batch 64 against them; P2's
    bounds (hbm: a 32-byte sector a gather; lane: shared-memory banks).
+7. The data path: sample1's frames 0-9 written as a 640x480 TUM tree
+   (depth at 1/5000 m, staggered timestamps, ``groundtruth.txt`` by
+   ``Trajectory.to_tum``); the port's command line over it, cut at 6
+   frames with ``--checkpoint``, then resumed to 10, against one
+   uninterrupted ``run_odometry`` (bitwise; the resume must run frames 6-9
+   only, and each run's K1, K2 and K3 launches are counted: 70 a pair, one
+   splat and one slice a frame built, as on the slamtb run of 4a); the same
+   frames through ``maybe_prefetch`` against plain (bitwise); which decoder
+   ran and decode ms per frame of ``io/png.py``, the native loader and the
+   prefetcher's wait in ``get``; host ms per frame with and without the
+   prefetcher; ``RgbdFrame.downsample(1.0)`` on the card against the CPU.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -114,6 +125,9 @@ FMA_RTOL = 1e-5  # P1 against its twin: fmaf rounds once, the twin twice
 GRID_SAMPLE_ATOL = 0.05  # K3's library yardstick must reproduce the sample this closely (depth units)
 INDEX_ADD_RTOL = 1e-5  # K2's library yardstick: the same sums in another order
 STEP_ITERATIONS = 70  # GN iterations of one MsIcpParams.default() align: 30 + 20 + 20
+TUM_CUT, TUM_EVERY = 6, 3  # phase 7: the cut run's max_frames and --checkpoint-every
+TUM_DEPTH_FACTOR = 5  # sample1's 1 mm depth units -> TUM's 1/5000 m
+DOWNSAMPLE_COLOR_SHARE = 1e-4  # RgbdFrame.downsample's colour, card vs CPU: the share the CPU tests allow vs JAX
 
 # Published H100 SXM peaks at 700 W (the bounds are stated against them).
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -804,6 +818,16 @@ def series_inputs(torch, s):
             torch.from_numpy(s.depth_scales).to(DEVICE))
 
 
+def reset_counts(counters: dict) -> None:
+    """``counters``: name -> (module, attribute) of a launch count."""
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in counters.items()}
+
+
 def throughput_path(torch, real, mixed, counters) -> dict:
     """Phase 4d: ``odometry_step`` on the 64-pair real series, bilateral off
     and bucketed on, then the mixed series; the checks of the module
@@ -819,23 +843,16 @@ def throughput_path(torch, real, mixed, counters) -> dict:
     from align3d_torch.tools.roofline import time_ms
     from align3d_torch.tools.series import bucket_plan
 
-    def reset():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read():
-        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-
     params = MsIcpParams.default()
     filt = bil.BilateralFilter()
     colors, depths, scales = series_inputs(torch, real)
     out = {}
     trajs = {}
     for label, f in (("off", None), ("on", filt)):
-        reset()
+        reset_counts(counters)
         traj = pb.odometry_step(real.camera, scales, colors, depths, params, bilateral_filter=f, device=DEVICE)
         torch.cuda.synchronize()
-        launches = read()
+        launches = read_counts(counters)
         plan = bucket_plan(real.depths, filt)
         want = {"icp": STEP_ITERATIONS, "splat": len(plan) if f else 0, "slice": len(plan) if f else 0,
                 "slice_a": 0, "normalize": 0}
@@ -916,11 +933,11 @@ def throughput_path(torch, real, mixed, counters) -> dict:
     per_frame = all(torch.equal(filt.filter_static(mdepths[b], int(cmin[b]), g, g), filtered[b])
                     for b, g in ((b, bil.true_depth(int(cmin[b]), int(cmax[b]), filt.sigma_color))
                                  for b in range(len(mdepths))))
-    reset()
+    reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     mtraj = pb.odometry_step(mixed.camera, mscales, mcolors, mdepths, params, bilateral_filter=filt, device=DEVICE)
     torch.cuda.synchronize()
-    mlaunch = read()
+    mlaunch = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     mrel = relative_poses(mtraj)
     true = torch.from_numpy(mixed.true_pairs()).to(DEVICE)
@@ -982,6 +999,181 @@ def profile_step(torch, real) -> dict:
             "k1_device_us_per_launch": sum(e.time_range.elapsed_us() for e in k1) / max(k1_launches, 1),
             "k1_launches": k1_launches, "max_memory_allocated_bytes": peak,
         }
+    return out
+
+
+def write_png16(path: Path, depth) -> None:
+    """A 16-bit grayscale PNG of ``depth`` (u16), every row filter type 0."""
+    import struct
+    import zlib
+
+    h, w = depth.shape
+    rows = depth.astype(">u2").view("u1").reshape(h, w * 2)
+    raw = b"".join(b"\x00" + row.tobytes() for row in rows)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
+                     + chunk(b"IEND", b""))
+
+
+def make_tum_tree(base: Path, dataset, Trajectory, n: int) -> Path:
+    """Sample1's frames 0..n-1 at 640x480 as a TUM tree: the RGB PNGs copied,
+    the depth rewritten at 1/5000 m, ``groundtruth.txt`` by
+    ``Trajectory.to_tum``. Timestamps are staggered as in
+    ``tests/_dataset_fixtures.py``: depth k at 10 + 0.1k, its RGB 15 ms later,
+    ground truth 5 ms earlier, one stray RGB (9.5 s) and one stray depth
+    (99 s) that the association drops."""
+    import shutil
+
+    import numpy as np
+
+    from align3d_torch.io.datasets.core import load_depth_u16
+
+    (base / "rgb").mkdir(parents=True)
+    (base / "depth").mkdir()
+    rgb_rows, depth_rows = ["# color images", "9.500000 rgb/stray.png"], ["# depth images"]
+    shutil.copy(SAMPLE1 / dataset.rgb_images[0], base / "rgb" / "stray.png")
+    for k in range(n):
+        t = 10.0 + 0.1 * k
+        depth = load_depth_u16(SAMPLE1 / dataset.depth_images[k]).astype(np.int64) * TUM_DEPTH_FACTOR
+        if depth.max() > np.iinfo(np.uint16).max:
+            raise RuntimeError(f"frame {k}: depth {depth.max()} does not fit in u16 at 1/5000 m")
+        write_png16(base / "depth" / f"{t:.6f}.png", depth.astype(np.uint16))
+        shutil.copy(SAMPLE1 / dataset.rgb_images[k], base / "rgb" / f"{t + 0.015:.6f}.png")
+        rgb_rows.append(f"{t + 0.015:.6f} rgb/{t + 0.015:.6f}.png")
+        depth_rows.append(f"{t:.6f} depth/{t:.6f}.png")
+    shutil.copy(base / "depth" / f"{10.0:.6f}.png", base / "depth" / "stray.png")
+    depth_rows.append("99.000000 depth/stray.png")
+    gt = dataset.trajectory().slice(0, n)
+    gt = Trajectory(gt.camera_to_world, gt.times * 0.1 + (10.0 - 0.005))
+    (base / "rgb.txt").write_text("\n".join(rgb_rows) + "\n")
+    (base / "depth.txt").write_text("\n".join(depth_rows) + "\n")
+    (base / "groundtruth.txt").write_text("# ground truth trajectory\n" + gt.to_tum())
+    return base
+
+
+def data_path(torch, dataset, builder, counters, slamtb_launches: dict) -> dict:
+    """Phase 7: the port's data path on the card over a 640x480 TUM tree made
+    from sample1: the command line cut at ``TUM_CUT`` frames with a
+    checkpoint, resumed to ``FRAMES``, against one uninterrupted run
+    (bitwise); the same frames prefetched against plain (bitwise); decode
+    ms per frame of each decoder; the kernels' launches per run; and
+    ``RgbdFrame.downsample`` on the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from align3d_torch import cli
+    from align3d_torch.checkpoint import load_odometry
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.io import native_loader, png
+    from align3d_torch.io.datasets import TumRgbdDataset
+    from align3d_torch.io.datasets.core import PrefetchingDataset, maybe_prefetch
+    from align3d_torch.odometry import run_odometry
+    from align3d_torch.trajectory import Trajectory
+
+    def expected(frames_built: int, pairs: int) -> dict:
+        return {"icp": STEP_ITERATIONS * pairs, "splat": frames_built, "slice": frames_built, "slice_a": 0,
+                "normalize": 0}
+
+    def run_timed(ds):
+        """run_odometry over the first FRAMES frames; host ms of each frame
+        after the first, from the progress callback."""
+        stamps = [time.perf_counter()]
+        result = run_odometry(ds, DEVICE, range_builder=builder, icp_params=MsIcpParams.default(),
+                              max_frames=FRAMES, progress=lambda i, n: stamps.append(time.perf_counter()))
+        per_frame = sorted((b - a) * 1e3 for a, b in zip(stamps[1:-1], stamps[2:]))
+        return result, per_frame[len(per_frame) // 2]
+
+    out = {"native_loader": native_loader.available(), "native_unavailable_reason": native_loader.unavailable_reason()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, FRAMES)
+        tum = TumRgbdDataset.load(str(tree))
+        if len(tum) != FRAMES or any("stray" in f for f in tum.rgb_images + tum.depth_images):
+            raise RuntimeError(f"the TUM association kept {len(tum)} frames: {tum.rgb_images}")
+        ck, saved = Path(tmp) / "odometry.npz", Path(tmp) / "resumed.tum"
+
+        # The command line: a cut run, then the resume to FRAMES frames.
+        argv = ["odometry", "tum", str(tree), "--checkpoint", str(ck), "--checkpoint-every", str(TUM_EVERY), "-q",
+                "--device", DEVICE]
+        runs = {}
+        for name, frames, extra in (("cut", TUM_CUT, []), ("resumed", FRAMES, ["--save-trajectory", str(saved)])):
+            reset_counts(counters)
+            if cli.main(argv[:3] + [str(frames)] + argv[3:] + extra) != 0:
+                raise RuntimeError(f"the {name} TUM run exited non-zero")
+            runs[name] = read_counts(counters)
+        want = {"cut": expected(TUM_CUT, TUM_CUT - 1), "resumed": expected(FRAMES - TUM_CUT + 1, FRAMES - TUM_CUT)}
+        resumed, next_frame = load_odometry(str(ck))
+
+        # One uninterrupted run, plain; then the same frames prefetched.
+        reset_counts(counters)
+        plain, plain_ms = run_timed(TumRgbdDataset.load(str(tree)))
+        runs["uninterrupted"] = read_counts(counters)
+        want["uninterrupted"] = expected(FRAMES, FRAMES - 1)
+        pre = maybe_prefetch(TumRgbdDataset.load(str(tree)))
+        if isinstance(pre, PrefetchingDataset) != out["native_loader"]:
+            raise RuntimeError(f"maybe_prefetch gave {type(pre).__name__} with the native loader "
+                               f"{'built' if out['native_loader'] else 'unavailable'}")
+        waits = []
+        if isinstance(pre, PrefetchingDataset):
+            get = pre.loader.get
+
+            def timed_get(i):
+                t0 = time.perf_counter()
+                frame = get(i)
+                waits.append((time.perf_counter() - t0) * 1e3)
+                return frame
+
+            pre.loader.get = timed_get
+        try:
+            fetched, fetched_ms = run_timed(pre)
+        finally:
+            if isinstance(pre, PrefetchingDataset):
+                pre.close()
+
+        # Decode ms per frame (colour + depth) of each decoder, host clock.
+        colors, depths = tum.frame_paths()
+        decoders = {"png.py": (png.read, png.read)}
+        if out["native_loader"]:
+            decoders["native single-shot"] = (native_loader.decode_rgb, native_loader.decode_depth)
+        decode = {}
+        for name, (read_rgb, read_depth) in decoders.items():
+            t0 = time.perf_counter()
+            for c, d in zip(colors, depths):
+                read_rgb(c), read_depth(d)
+            decode[name] = (time.perf_counter() - t0) * 1e3 / len(colors)
+        if waits:
+            decode["prefetcher wait in get"] = sorted(waits)[len(waits) // 2]
+        saved_text = saved.read_text()
+
+    traj = plain.trajectory
+    a, b, f = traj.camera_to_world, resumed.camera_to_world, fetched.trajectory.camera_to_world
+    out["resumed_next_frame"] = next_frame
+    out["resumed_bitwise_uninterrupted"] = (torch.equal(a.rotation.cpu(), b.rotation) and
+                                            torch.equal(a.translation.cpu(), b.translation) and
+                                            torch.equal(traj.times.cpu(), resumed.times))
+    out["resumed_tum_text_equal"] = saved_text == traj.to_tum()
+    out["prefetched_bitwise_plain"] = torch.equal(a.rotation, f.rotation) and torch.equal(a.translation, f.translation)
+    out["launches"] = runs
+    out["launches_expected"] = want
+    out["slamtb_launches_same_length"] = slamtb_launches
+    out["error_vs_ground_truth"] = {"angle_deg": math.degrees(float(plain.metrics.angle)),
+                                    "translation": float(plain.metrics.translation)}
+    out["finite"] = bool(torch.isfinite(a.rotation).all() and torch.isfinite(a.translation).all())
+    out["decode_ms_per_frame"] = decode
+    out["odometry_host_ms_per_frame_median"] = {"plain": plain_ms, "prefetched": fetched_ms}
+
+    # RgbdFrame.downsample on the card against the CPU, sample1 frame 0.
+    frame = dataset.get(0)
+    on_card, on_cpu = frame.downsample(1.0, device=DEVICE), frame.downsample(1.0, device="cpu")
+    color_diff = np.abs(on_card.image.color.astype(int) - on_cpu.image.color.astype(int))
+    out["downsample"] = {"depth_bitwise": bool(np.array_equal(on_card.image.depth, on_cpu.image.depth)),
+                         "color_max_diff": int(color_diff.max()), "color_pixels_off": int((color_diff > 0).sum()),
+                         "color_share_off": float((color_diff > 0).mean()),
+                         "camera_equal": on_card.camera == on_cpu.camera}
     return out
 
 
@@ -1154,7 +1346,43 @@ def main() -> int:
           f"{p2['bound_ms'] / p2['ms']:.3f} of it; lane {lane['bound_ms']} ms at {lane['sm_clock_hz'] / 1e6:.0f} MHz "
           f"(one shared load and one store a gather, 32 banks x 132 SMs), measured {lane['ms']} ms")
     done("phase 6")
+
+    # -- 7. the data path ----------------------------------------------------
+    data = data_path(torch, dataset, builder, counters, {k: launches[k] for k in ODOMETRY_KERNELS})
+    print("data path: " + json.dumps(data))
+    print("data path decoder: " + ("native loader (libpng/libjpeg, built from native/loader.cpp)"
+                                   if data["native_loader"] else
+                                   f"io/png.py; the native loader did not build: {data['native_unavailable_reason']}"))
+    print(f"data path decode ms per frame (colour + depth, 640x480): {json.dumps(data['decode_ms_per_frame'])}")
+    print("data path odometry host ms per frame (median of frames 2-9): "
+          + json.dumps(data["odometry_host_ms_per_frame_median"]))
+    print(f"data path resume: cut at {TUM_CUT} frames, resumed to {data['resumed_next_frame']}: bitwise the "
+          f"uninterrupted run {data['resumed_bitwise_uninterrupted']}, TUM text equal {data['resumed_tum_text_equal']}; "
+          f"prefetched bitwise plain {data['prefetched_bitwise_plain']}")
+    print(f"data path launches: {json.dumps(data['launches'])}; slamtb, {FRAMES} frames: "
+          f"{json.dumps(data['slamtb_launches_same_length'])}")
+    err = data["error_vs_ground_truth"]
+    print(f"data path TUM odometry against the written ground truth: {err['angle_deg']:.4f} deg / "
+          f"{err['translation']:.6f} (not gated: TUM's intrinsics 525 / 319.5 are not sample1's 544.47 / 320)")
+    print(f"RgbdFrame.downsample(1.0), card against cpu: {json.dumps(data['downsample'])}")
+    if data["launches"] != data["launches_expected"]:
+        return fail(f"the data path's launches {data['launches']} are not {data['launches_expected']}")
+    if any(data["launches"]["uninterrupted"][k] != v for k, v in data["slamtb_launches_same_length"].items()):
+        return fail("the TUM run launched K1-K3 otherwise than the slamtb run of the same length")
+    if data["resumed_next_frame"] != FRAMES or not (data["resumed_bitwise_uninterrupted"]
+                                                     and data["resumed_tum_text_equal"]):
+        return fail("the resumed TUM run differs from the uninterrupted one")
+    if not data["prefetched_bitwise_plain"]:
+        return fail("the prefetched TUM run differs from the plain one")
+    if not data["finite"]:
+        return fail("non-finite poses in the TUM run")
+    ds = data["downsample"]
+    if not (ds["depth_bitwise"] and ds["camera_equal"] and ds["color_max_diff"] <= 1
+            and ds["color_share_off"] <= DOWNSAMPLE_COLOR_SHARE):
+        return fail(f"RgbdFrame.downsample on the card differs from the CPU: {ds}")
+    done("phase 7")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
+               "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
                "throughput, bilateral on (4d)": throughput["bilateral_on"]["launches"],
                "mixed series (4d)": throughput["mixed"]["launches"]}

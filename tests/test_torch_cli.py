@@ -2,7 +2,7 @@
 package's (``align3d_tpu/cli.py``): JAX odometry command lines that use only
 flags the port has parse to the same values with both parsers, and the JAX
 flags the port lacks are exactly those that wait for later modules
-(ROADMAP Queue 1: the checkpoint, loop closure, the viewer)."""
+(ROADMAP Queue 1: loop closure, the viewer)."""
 
 import argparse
 
@@ -13,8 +13,9 @@ from align3d_tpu import cli as jax_cli
 from align3d_torch import cli
 
 SAMPLE1 = "tests/data/rgbd/sample1"
-SHARED = ("format", "dataset", "max_frames", "no_bilateral", "engine", "coarse_exact", "quiet", "save_trajectory")
-WAITING = {"--checkpoint", "--checkpoint-every", "--loop-closure", "--show"}
+SHARED = ("format", "dataset", "max_frames", "no_bilateral", "engine", "coarse_exact", "quiet", "save_trajectory",
+          "checkpoint", "checkpoint_every")
+WAITING = {"--loop-closure", "--show"}
 
 COMMAND_LINES = [
     ["odometry", "slamtb", SAMPLE1],
@@ -23,6 +24,9 @@ COMMAND_LINES = [
     ["odometry", "slamtb", SAMPLE1, "--engine", "pallas", "--coarse-exact", "--no-bilateral", "-q"],
     ["odometry", "slamtb", SAMPLE1, "3", "--quiet", "--save-trajectory", "out.tum"],
     ["odometry", "slamtb", SAMPLE1, "--no-bilateral", "--engine", "xla", "--coarse-exact"],
+    ["odometry", "tum", "rgbd_dataset_freiburg1_desk", "--checkpoint", "ck.npz"],
+    ["odometry", "ilrgbd", "bedroom", "20", "--checkpoint", "ck.npz", "--checkpoint-every", "3", "-q"],
+    ["odometry", "slamtb", SAMPLE1, "--checkpoint-every", "1", "--save-trajectory", "out.tum"],
 ]
 
 
@@ -64,3 +68,13 @@ def test_missing_flags_are_the_queued_ones(monkeypatch, capsys):
     assert "--coarse-exact" in ours and "-q" in ours
     assert theirs - ours == WAITING
     assert ours - theirs == {"--device"}
+
+
+@pytest.mark.parametrize("value", ["0", "-2"])
+def test_checkpoint_every_below_one_is_refused_by_both(monkeypatch, capsys, value):
+    argv = ["odometry", "slamtb", SAMPLE1, "--checkpoint-every", value]
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(argv)
+    with pytest.raises(SystemExit):
+        _jax_parse(monkeypatch, argv)
+    assert "must be >= 1" in capsys.readouterr().err

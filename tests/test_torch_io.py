@@ -119,8 +119,14 @@ def test_slamtb_matches_jax_loader(sample):
     assert len(sub) == 2 and len(sub.trajectory()) == 2
 
 
-def test_load_dataset_names_unported_formats():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        load_dataset("tum", "/nonexistent")
+def test_load_dataset_names_unported_formats(tmp_path):
+    """Every format of the JAX package's dispatcher loads; an unknown one
+    still raises."""
+    from _dataset_fixtures import make_indoor_lidar_tree, make_tum_tree
+
+    tum = load_dataset("tum", make_tum_tree(str(tmp_path / "tum"), n_frames=2))
+    ilrgbd = load_dataset("ilrgbd", make_indoor_lidar_tree(str(tmp_path / "il"), n_frames=2))
+    assert (type(tum).__name__, len(tum)) == ("TumRgbdDataset", 2)
+    assert (type(ilrgbd).__name__, len(ilrgbd)) == ("IndoorLidarDataset", 2)
     with pytest.raises(ValueError, match="Invalid dataset format"):
         load_dataset("nope", "/nonexistent")
