@@ -2,7 +2,7 @@
 of ``align3d_tpu/cli.py``.
 
     python -m align3d_torch.cli odometry {slamtb,tum,ilrgbd} <dataset> [max_frames]
-        [--checkpoint PATH [--checkpoint-every N]]
+        [--checkpoint PATH [--checkpoint-every N]] [--loop-closure]
 
 It runs on the GPU (``--device cuda``, the default, which fails when CUDA is
 absent); ``--device cpu`` selects the plain-PyTorch path. Frames decode
@@ -33,7 +33,7 @@ def cmd_odometry(args) -> int:
     from align3d_torch.icp.params import MsIcpParams
     from align3d_torch.io.datasets import SubsetDataset, load_dataset
     from align3d_torch.io.datasets.core import PrefetchingDataset, maybe_prefetch
-    from align3d_torch.odometry import run_odometry
+    from align3d_torch.odometry import refine_with_loop_closures, run_odometry
     from align3d_torch.ops.bilateral import BilateralFilter
     from align3d_torch.range_image import RangeImageBuilder
 
@@ -56,6 +56,10 @@ def cmd_odometry(args) -> int:
             checkpoint_path=args.checkpoint,
             checkpoint_every=args.checkpoint_every,
         )
+        if args.loop_closure:
+            before = f"{result.metrics}" if result.metrics is not None else "n/a"
+            result = refine_with_loop_closures(dataset, result, args.device, range_builder=builder, icp_params=params)
+            print(f"Mean trajectory error before loop closure: {before}")
     finally:
         if isinstance(loaded, PrefetchingDataset):
             loaded.close()
@@ -98,6 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="accepted for compatibility with align3d-tpu, where it keeps exact "
         "association at the coarsest level of a pallas engine: the port "
         "associates exactly at every level, so it changes nothing",
+    )
+    p_odo.add_argument(
+        "--loop-closure",
+        action="store_true",
+        help="after odometry, detect loop closures and refine the "
+        "trajectory with pose-graph Gauss-Newton",
     )
     p_odo.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p_odo.add_argument("--quiet", "-q", action="store_true")

@@ -15,6 +15,8 @@ from align3d_torch.icp.params import IcpParams, MsIcpParams
 from align3d_torch.io.geometry import Geometry
 from align3d_torch.ops.nn_banded import SortedGrid
 from align3d_torch.ops.voxel_hash import VoxelHashGrid
+from align3d_torch.parallel.bundle_adjustment import BAProblem
+from align3d_torch.parallel.pose_graph import PoseGraph
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
 
@@ -26,6 +28,37 @@ def _tensor(array, dtype, device) -> torch.Tensor:
 def transform_from_numpy(rot, trans, device="cuda") -> Transform:
     """(…, 3, 3) rotation and (…, 3) translation -> Transform."""
     return Transform(_tensor(rot, np.float32, device), _tensor(trans, np.float32, device))
+
+
+def pose_graph_from_numpy(rot, trans, edges, meas_rot, meas_trans, weights, device="cuda") -> PoseGraph:
+    """The arrays of a JAX ``pose_graph.PoseGraph``: node rotations and
+    translations, (E, 2) edges, the measurements' rotations and
+    translations, (E,) weights."""
+    return PoseGraph(
+        nodes=transform_from_numpy(rot, trans, device),
+        edges=_tensor(edges, np.int64, device),
+        measurements=transform_from_numpy(meas_rot, meas_trans, device),
+        weights=_tensor(weights, np.float32, device),
+    )
+
+
+def ba_problem_from_numpy(
+    rot, trans, landmarks, obs_pose, obs_landmark, obs_uv, weights, intrinsics: dict, obs_z=None,
+    depth_weight: float = 100.0, device="cuda",
+) -> BAProblem:
+    """The arrays of a JAX ``bundle_adjustment.BAProblem`` +
+    ``dataclasses.asdict(intrinsics)``; ``obs_z`` may be None."""
+    return BAProblem(
+        poses=transform_from_numpy(rot, trans, device),
+        landmarks=_tensor(landmarks, np.float32, device),
+        obs_pose=_tensor(obs_pose, np.int64, device),
+        obs_landmark=_tensor(obs_landmark, np.int64, device),
+        obs_uv=_tensor(obs_uv, np.float32, device),
+        weights=_tensor(weights, np.float32, device),
+        intrinsics=CameraIntrinsics(**intrinsics),
+        obs_z=None if obs_z is None else _tensor(obs_z, np.float32, device),
+        depth_weight=float(depth_weight),
+    )
 
 
 def range_image_from_numpy(

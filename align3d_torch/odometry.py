@@ -1,10 +1,12 @@
-"""Frame-to-frame odometry (port of ``align3d_tpu/odometry.py::run_odometry``).
+"""Frame-to-frame odometry (port of ``align3d_tpu/odometry.py``).
 
-Per frame: build the range-image pyramid on the device, run multiscale ICP
-against the previous frame and accumulate the relative pose
-(``examples/src/bin/odometry.rs:28-62``), with the JAX package's checkpoint
-and resume (:mod:`align3d_torch.checkpoint`). Loop closure is not ported
-yet (ROADMAP Queue 1).
+:func:`run_odometry`, per frame: build the range-image pyramid on the
+device, run multiscale ICP against the previous frame and accumulate the
+relative pose (``examples/src/bin/odometry.rs:28-62``), with the JAX
+package's checkpoint and resume (:mod:`align3d_torch.checkpoint`).
+:func:`refine_with_loop_closures` then refines the trajectory globally:
+loop-closure candidates measured by multiscale ICP, and a pose graph
+(:mod:`align3d_torch.parallel.pose_graph`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from align3d_torch import checkpoint
 from align3d_torch.icp.multiscale import MultiscaleAlign
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.metrics import TransformMetrics
+from align3d_torch.parallel import pose_graph as pg
 from align3d_torch.range_image import RangeImageBuilder
 from align3d_torch.se3 import Transform
 from align3d_torch.trajectory import Trajectory, TrajectoryBuilder
@@ -107,3 +110,48 @@ def run_odometry(
         seconds_per_frame=elapsed / max(n - start_frame, 1),
         residuals=residuals,
     )
+
+
+def refine_with_loop_closures(
+    dataset,
+    result: OdometryResult,
+    device="cuda",
+    range_builder: RangeImageBuilder | None = None,
+    icp_params: MsIcpParams | None = None,
+    min_separation: int = 10,
+    max_translation: float = 0.5,
+    max_candidates: int = 16,
+    closure_weight: float = 5.0,
+    iterations: int = 10,
+    mesh=None,
+) -> OdometryResult:
+    """Global trajectory refinement on ``device``: propose loop-closure
+    candidates from the odometry trajectory (pose distance), measure each
+    candidate's relative pose with multiscale ICP seeded from the odometry
+    estimate, and optimize the pose graph (odometry chain + closure edges
+    of weight ``closure_weight``) by Gauss-Newton. ``mesh`` must be None:
+    the sharded solve is not ported yet (ROADMAP Queue 1 item 4)."""
+    if mesh is not None:
+        raise NotImplementedError(pg.SHARDING_NOT_PORTED)
+    device = torch.device(device)
+    range_builder = range_builder or RangeImageBuilder()
+    icp_params = icp_params or MsIcpParams.default()
+    traj = result.trajectory.to(device)
+
+    candidates = pg.propose_loop_closures(
+        traj, min_separation=min_separation, max_translation=max_translation, max_candidates=max_candidates
+    )
+    edges = []
+    for i, j in candidates.tolist():
+        target = range_builder.build(dataset.get(i), device)
+        source = range_builder.build(dataset.get(j), device)
+        z = MultiscaleAlign(icp_params, target).align(source, initial_transform=traj.get_relative_transform(j, i))
+        edges.append((i, j, z, closure_weight))
+
+    refined = pg.refine_trajectory(traj, loop_edges=edges, iterations=iterations)
+    metrics = None
+    gt = dataset.trajectory()
+    if gt is not None:
+        gt = gt.slice(0, len(refined)).first_frame_at_origin().to(device)
+        metrics = TransformMetrics.mean_trajectory_error(refined, gt)
+    return OdometryResult(trajectory=refined, metrics=metrics, seconds_per_frame=result.seconds_per_frame)

@@ -81,6 +81,33 @@ Run from the root of a checkout. Phases, each of which fails the run:
    ran and decode ms per frame of ``io/png.py``, the native loader and the
    prefetcher's wait in ``get``; host ms per frame with and without the
    prefetcher; ``RgbdFrame.downsample(1.0)`` on the card against the CPU.
+8. Global refinement, each path with K1-K3's launch counts reset just
+   before and read just after, all printed as one ``global refinement:``
+   JSON line:
+   a. ``tests/test_loop_closure_e2e.py`` on the card: the 18-frame
+      palindrome of sample1 (0-11, then 10 to 0 in steps of 2), 640x480,
+      no filter, odometry at 2 GN iterations a level, then
+      ``refine_with_loop_closures`` (closures by ``MsIcpParams.default()``,
+      ``min_separation=16``): that test's gates (translation error below
+      the odometry's, angle within 1.1x + 1e-3 deg, the revisit closed to
+      5e-3) and K1's launches (6 a pair, 70 a closure);
+   b. the command line, ``odometry tum <tree> --loop-closure`` over the
+      palindrome as a TUM tree (filter on, the defaults), against
+      ``run_odometry`` + ``refine_with_loop_closures`` called directly on
+      the card (the saved TUM text equal, or within ``CLI_DIRECT_ATOL``);
+      K1/K2/K3 launches (70 a pair and a closure; one K2 and one K3 a
+      frame built, each closure building two);
+   c. the 500-pose graph of ``tests/test_pose_graph.py:198-230``, CG with
+      768 trips, 4 GN iterations: its gate (error below 0.6x), the card
+      against the CPU, host ms, device busy ms and activities per optimize
+      and per PCG trip, peak memory, host syncs per optimize, and one PCG
+      call under ``set_sync_debug_mode("error")``; the dense solver at 64
+      poses, card against CPU;
+   d. bundle adjustment at 500 poses x 50,000 landmarks x 200,000
+      observations (``tests/test_bundle_adjustment.py:192-241``, COO, 2
+      iterations, 32 PCG trips): its gate (error below 0.2x), the card
+      against the CPU and the same measurements as 8c; the dense solver on
+      the 6 x 40 scene, card against CPU.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -128,6 +155,17 @@ STEP_ITERATIONS = 70  # GN iterations of one MsIcpParams.default() align: 30 + 2
 TUM_CUT, TUM_EVERY = 6, 3  # phase 7: the cut run's max_frames and --checkpoint-every
 TUM_DEPTH_FACTOR = 5  # sample1's 1 mm depth units -> TUM's 1/5000 m
 DOWNSAMPLE_COLOR_SHARE = 1e-4  # RgbdFrame.downsample's colour, card vs CPU: the share the CPU tests allow vs JAX
+# Phase 8, global refinement. 8a/8b: tests/test_loop_closure_e2e.py's palindrome
+# (frames 0-11, then back to 0 in steps of 2), 8a with its cheap odometry.
+PALINDROME = list(range(12)) + [10, 8, 6, 4, 2, 0]
+CHEAP_ITERATIONS = 2  # GN iterations a level of 8a's odometry
+PG_POSES, PG_DENSE_POSES, PG_ITERATIONS, PG_CG_ITERS = 500, 64, 4, 768  # tests/test_pose_graph.py:198-230
+BA_SIZE, BA_ITERATIONS, BA_CG_ITERS = (500, 50_000, 200_000), 2, 32  # tests/test_bundle_adjustment.py:192-241
+CLI_DIRECT_ATOL = 1e-5  # 8b: saved trajectory (TUM text, 7 decimals) vs the direct call; index_add_ adds by atomics
+PG_CARD_CPU_ATOL = 1e-3  # 8c: float32 CG on the 500-chain, card vs CPU (a 1e-7 relative nudge of the nodes moves 5e-5)
+PG_DENSE_CARD_CPU_ATOL = 1e-4  # 8c: float64 dense solve of float32 systems, card vs CPU
+BA_CARD_CPU_ATOL = 1e-4  # 8d: 32 float32 PCG trips, card vs CPU
+BA_DENSE_CARD_CPU_ATOL = 1e-4  # 8d: the dense Schur solve, card vs CPU
 
 # Published H100 SXM peaks at 700 W (the bounds are stated against them).
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1019,35 +1057,36 @@ def write_png16(path: Path, depth) -> None:
                      + chunk(b"IEND", b""))
 
 
-def make_tum_tree(base: Path, dataset, Trajectory, n: int) -> Path:
-    """Sample1's frames 0..n-1 at 640x480 as a TUM tree: the RGB PNGs copied,
-    the depth rewritten at 1/5000 m, ``groundtruth.txt`` by
-    ``Trajectory.to_tum``. Timestamps are staggered as in
-    ``tests/_dataset_fixtures.py``: depth k at 10 + 0.1k, its RGB 15 ms later,
-    ground truth 5 ms earlier, one stray RGB (9.5 s) and one stray depth
-    (99 s) that the association drops."""
+def make_tum_tree(base: Path, dataset, Trajectory, frames: list[int]) -> Path:
+    """Sample1's frames ``frames`` (in that order, repeats allowed) at
+    640x480 as a TUM tree: the RGB PNGs copied, the depth rewritten at
+    1/5000 m, ``groundtruth.txt`` by ``Trajectory.to_tum``. Timestamps are
+    staggered as in ``tests/_dataset_fixtures.py``: the k-th depth at 10 +
+    0.1k, its RGB 15 ms later, ground truth 5 ms earlier, one stray RGB
+    (9.5 s) and one stray depth (99 s) that the association drops."""
     import shutil
 
     import numpy as np
 
+    from align3d_torch.io.datasets import SubsetDataset
     from align3d_torch.io.datasets.core import load_depth_u16
 
     (base / "rgb").mkdir(parents=True)
     (base / "depth").mkdir()
     rgb_rows, depth_rows = ["# color images", "9.500000 rgb/stray.png"], ["# depth images"]
     shutil.copy(SAMPLE1 / dataset.rgb_images[0], base / "rgb" / "stray.png")
-    for k in range(n):
+    for k, index in enumerate(frames):
         t = 10.0 + 0.1 * k
-        depth = load_depth_u16(SAMPLE1 / dataset.depth_images[k]).astype(np.int64) * TUM_DEPTH_FACTOR
+        depth = load_depth_u16(SAMPLE1 / dataset.depth_images[index]).astype(np.int64) * TUM_DEPTH_FACTOR
         if depth.max() > np.iinfo(np.uint16).max:
-            raise RuntimeError(f"frame {k}: depth {depth.max()} does not fit in u16 at 1/5000 m")
+            raise RuntimeError(f"frame {index}: depth {depth.max()} does not fit in u16 at 1/5000 m")
         write_png16(base / "depth" / f"{t:.6f}.png", depth.astype(np.uint16))
-        shutil.copy(SAMPLE1 / dataset.rgb_images[k], base / "rgb" / f"{t + 0.015:.6f}.png")
+        shutil.copy(SAMPLE1 / dataset.rgb_images[index], base / "rgb" / f"{t + 0.015:.6f}.png")
         rgb_rows.append(f"{t + 0.015:.6f} rgb/{t + 0.015:.6f}.png")
         depth_rows.append(f"{t:.6f} depth/{t:.6f}.png")
     shutil.copy(base / "depth" / f"{10.0:.6f}.png", base / "depth" / "stray.png")
     depth_rows.append("99.000000 depth/stray.png")
-    gt = dataset.trajectory().slice(0, n)
+    gt = SubsetDataset(dataset, frames).trajectory()  # times 0..len - 1
     gt = Trajectory(gt.camera_to_world, gt.times * 0.1 + (10.0 - 0.005))
     (base / "rgb.txt").write_text("\n".join(rgb_rows) + "\n")
     (base / "depth.txt").write_text("\n".join(depth_rows) + "\n")
@@ -1090,7 +1129,7 @@ def data_path(torch, dataset, builder, counters, slamtb_launches: dict) -> dict:
 
     out = {"native_loader": native_loader.available(), "native_unavailable_reason": native_loader.unavailable_reason()}
     with tempfile.TemporaryDirectory() as tmp:
-        tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, FRAMES)
+        tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, list(range(FRAMES)))
         tum = TumRgbdDataset.load(str(tree))
         if len(tum) != FRAMES or any("stray" in f for f in tum.rgb_images + tum.depth_images):
             raise RuntimeError(f"the TUM association kept {len(tum)} frames: {tum.rgb_images}")
@@ -1175,6 +1214,414 @@ def data_path(torch, dataset, builder, counters, slamtb_launches: dict) -> dict:
                          "color_share_off": float((color_diff > 0).mean()),
                          "camera_equal": on_card.camera == on_cpu.camera}
     return out
+
+
+def ba_intrinsics():
+    """The camera of tests/test_bundle_adjustment.py."""
+    from align3d_torch.camera import CameraIntrinsics
+
+    return CameraIntrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
+
+
+def ring_graph(torch, pg, n: int, seed: int = 3):
+    """``tests/test_pose_graph.py::test_cg_long_sequence_scales``'s graph,
+    built on the CPU: ``n`` poses on a circle, odometry with 0.01 twist
+    noise a step, exact closures (0, n // 2) and (0, n - 1) at weight 10.
+    Returns (graph, ground-truth poses)."""
+    import numpy as np
+
+    from align3d_torch import se3
+    from align3d_torch.se3 import Transform
+    from align3d_torch.trajectory import Trajectory
+
+    rng = np.random.default_rng(seed)
+    step = Transform.exp(torch.tensor([0.1, 0.0, 0.0, 0.0, 0.0, 2 * math.pi / n]))
+    gt = [Transform.identity()]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ step)
+    est = [gt[0]]
+    for k in range(n - 1):
+        noise = Transform.exp(torch.from_numpy(rng.normal(0, 0.01, 6).astype(np.float32)))
+        est.append(est[-1] @ ((gt[k].inverse() @ gt[k + 1]) @ noise))
+    graph = pg.PoseGraph.from_trajectory(Trajectory(se3.stack(est), torch.arange(n, dtype=torch.float32)))
+    for j in (n // 2, n - 1):
+        graph = graph.with_edge(0, j, gt[0].inverse() @ gt[j], 10.0)
+    return graph, se3.stack(gt)
+
+
+def graph_to(pg, graph, device):
+    return pg.PoseGraph(graph.nodes.to(device), graph.edges.to(device), graph.measurements.to(device),
+                        graph.weights.to(device))
+
+
+def problem_to(problem, device):
+    import dataclasses
+
+    return dataclasses.replace(
+        problem, poses=problem.poses.to(device), landmarks=problem.landmarks.to(device),
+        obs_pose=problem.obs_pose.to(device), obs_landmark=problem.obs_landmark.to(device),
+        obs_uv=problem.obs_uv.to(device), weights=problem.weights.to(device),
+        obs_z=None if problem.obs_z is None else problem.obs_z.to(device))
+
+
+def ba_large(torch, ba, n: int, m: int, o: int, seed: int = 11):
+    """``tests/test_bundle_adjustment.py::test_coo_large_problem_scales``'s
+    problem, built on the CPU: ``n`` poses of a random walk, ``m``
+    landmarks moved by 5 cm, ``o`` exact (u, v, z) observations of random
+    (pose, landmark) pairs."""
+    import numpy as np
+
+    from align3d_torch import se3
+    from align3d_torch.se3 import Transform
+
+    intr = ba_intrinsics()
+    rng = np.random.default_rng(seed)
+    landmarks_gt = torch.from_numpy(rng.uniform([-4, -4, 2.0], [4, 4, 8.0], (m, 3)).astype(np.float32))
+    poses = [Transform.identity()]
+    for _ in range(n - 1):
+        poses.append(poses[-1] @ Transform.exp(torch.from_numpy(rng.normal(0, 0.01, 6).astype(np.float32))))
+    poses_gt = se3.stack(poses)
+    obs_pose = torch.from_numpy(rng.integers(0, n, o))
+    obs_landmark = torch.from_numpy(rng.integers(0, m, o))
+    p_cam = poses_gt[obs_pose].inverse().apply(landmarks_gt[obs_landmark])
+    z = p_cam[:, 2]
+    u = p_cam[:, 0] * intr.fx / z + intr.cx
+    v = p_cam[:, 1] * intr.fy / z + intr.cy
+    noise = torch.from_numpy(rng.normal(0, 0.05, (m, 3)).astype(np.float32))
+    return ba.BAProblem(poses_gt, landmarks_gt + noise, obs_pose, obs_landmark, torch.stack([u, v], dim=1),
+                        torch.ones(o), intr, obs_z=z)
+
+
+def ba_scene(torch, ba, n: int = 6, m: int = 40, seed: int = 0):
+    """``tests/test_bundle_adjustment.py::_synthetic_problem``'s scene, built
+    on the CPU: every landmark seen by every pose, poses moved by 0.02 and
+    landmarks by 0.05 (pose 0 the gauge). Returns (problem, poses_gt,
+    landmarks_gt)."""
+    import numpy as np
+
+    from align3d_torch.se3 import Transform
+
+    intr = ba_intrinsics()
+    rng = np.random.default_rng(seed)
+    landmarks_gt = torch.from_numpy(np.concatenate(
+        [rng.uniform(-1.0, 1.0, (m, 2)), rng.uniform(2.0, 4.0, (m, 1))], axis=1).astype(np.float32))
+    twists = rng.normal(0.0, 0.03, (n, 6)).astype(np.float32)
+    twists[:, :3] *= 2.0
+    twists[0] = 0.0
+    poses_gt = Transform.exp(torch.from_numpy(twists))
+    p_cam = poses_gt.inverse()[:, None].apply(landmarks_gt[None])  # (n, m, 3)
+    uv = torch.stack([p_cam[..., 0] * intr.fx / p_cam[..., 2] + intr.cx,
+                      p_cam[..., 1] * intr.fy / p_cam[..., 2] + intr.cy], dim=-1)
+    noise = rng.normal(0.0, 0.02, (n, 6)).astype(np.float32)
+    noise[0] = 0.0
+    poses0 = poses_gt @ Transform.exp(torch.from_numpy(noise))
+    landmarks0 = landmarks_gt + torch.from_numpy(rng.normal(0.0, 0.05, (m, 3)).astype(np.float32))
+    problem = ba.BAProblem(poses0, landmarks0, torch.arange(n).repeat_interleave(m), torch.arange(m).repeat(n),
+                           uv.reshape(-1, 2), torch.ones(n * m), intr, obs_z=p_cam[..., 2].reshape(-1))
+    return problem, poses_gt, landmarks_gt
+
+
+def max_pose_gap(torch, a, b) -> float:
+    """Largest elementwise |difference| of two batched Transforms' rotations and translations."""
+    return max(float((a.rotation.cpu() - b.rotation.cpu()).abs().max()),
+               float((a.translation.cpu() - b.translation.cpu()).abs().max()))
+
+
+def pose_err(torch, a, b) -> float:
+    """``tests/test_pose_graph.py::_pose_err``: the largest |log(a^-1 b)|."""
+    return float(torch.linalg.norm((a.inverse() @ b).log(), dim=-1).max())
+
+
+def host_ms(torch, fn, runs: int = 3) -> tuple[float, object]:
+    """Median host ms of ``runs`` calls of ``fn``, each ended by a
+    synchronise, and the last call's result."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def device_profile(torch, fn) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (device activity only: a solve
+    issues ~10^5 launches): its device-busy ms and activities, beside the
+    profiled wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(torch, prof)
+    return {"device_busy_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            "device_activities": len(events), "profiled_wall_ms": wall_ms}
+
+
+def solver_profile(torch, run, trips: int) -> dict:
+    """Host ms (median of 3), device busy ms, activities and peak memory of
+    one solve, ``run(cg_iters)``; per PCG trip, the difference against the
+    same solve with no trips, over ``trips``."""
+    host, _ = host_ms(torch, lambda: run(None))
+    torch.cuda.reset_peak_memory_stats()
+    run(None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    full, zero = device_profile(torch, lambda: run(None)), device_profile(torch, lambda: run(0))
+    host_zero, _ = host_ms(torch, lambda: run(0))
+    return {"host_ms": host, **full, "peak_memory_bytes": peak,
+            "per_pcg_trip": {
+                "host_ms": (host - host_zero) / trips,
+                "device_busy_ms": (full["device_busy_ms"] - zero["device_busy_ms"]) / trips,
+                "device_activities": (full["device_activities"] - zero["device_activities"]) / trips},
+            "without_pcg_trips": {"host_ms": host_zero, **zero}}
+
+
+def syncs_in(torch, fn) -> dict:
+    """The host synchronisations ``fn()`` makes, as
+    ``set_sync_debug_mode("warn")`` reports them: their count, and for each
+    the calls that led to it (the frames of this repository, then the
+    innermost one)."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            ours = [f"{Path(f.filename).name}:{f.lineno}" for f in stack
+                    if str(ROOT) in f.filename and not f.filename.endswith("chip_smoke.py")]
+            sites.append(" > ".join(ours + [f"{Path(filename).parent.name}/{Path(filename).name}:{lineno}"]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {"count": len(sites), "sites": sorted(set(sites))}
+
+
+def palindrome_path(torch, dataset, counters) -> tuple[dict, list]:
+    """Phase 8a: ``tests/test_loop_closure_e2e.py`` on the card."""
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.io.datasets import SubsetDataset
+    from align3d_torch.odometry import refine_with_loop_closures, run_odometry
+    from align3d_torch.parallel import pose_graph as pg
+
+    ds = SubsetDataset(dataset, PALINDROME)
+    last = len(PALINDROME) - 1
+    cheap = MsIcpParams.default().customize(lambda _, p: p.replace(max_iterations=CHEAP_ITERATIONS))
+    kwargs = {"min_separation": last - 1, "max_translation": 0.5, "max_candidates": 4, "closure_weight": 20.0}
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    raw = run_odometry(ds, DEVICE, icp_params=cheap)
+    refined = refine_with_loop_closures(ds, raw, DEVICE, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    closures = pg.propose_loop_closures(raw.trajectory, **{k: kwargs[k] for k in kwargs if k != "closure_weight"})
+    # K1 once a GN iteration: the cheap odometry's 3 levels x 2 iterations a
+    # pair, and MsIcpParams.default()'s 70 a closure; no filter, so no K2/K3.
+    want = {"icp": (len(PALINDROME) - 1) * 3 * CHEAP_ITERATIONS + STEP_ITERATIONS * len(closures),
+            "splat": 0, "slice": 0, "slice_a": 0, "normalize": 0}
+    raw_t, ref_t = float(raw.metrics.translation), float(refined.metrics.translation)
+    raw_a, ref_a = math.degrees(float(raw.metrics.angle)), math.degrees(float(refined.metrics.angle))
+    poses = refined.trajectory.camera_to_world
+    gap = float(torch.linalg.norm((poses[0].inverse() @ poses[last]).log()))
+    out = {"frames": PALINDROME, "closures": closures.tolist(), "launches": launches, "launches_expected": want,
+           "ate_translation": {"odometry": raw_t, "refined": ref_t}, "ate_angle_deg": {"odometry": raw_a,
+                                                                                       "refined": ref_a},
+           "revisit_gap": gap, "wall_s": wall}
+    failures = []
+    if launches != want:
+        failures.append(f"8a: launches {launches}, expected {want}")
+    if not (ref_t < raw_t and ref_a < raw_a * 1.1 + 1e-3 and gap < 5e-3):
+        failures.append(f"8a: the refined palindrome fails tests/test_loop_closure_e2e.py's gates: {out}")
+    return out, failures
+
+
+def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
+    """Phase 8b: ``align3d_torch.cli odometry tum <tree> --loop-closure`` over
+    the palindrome as a TUM tree (filter on, ``MsIcpParams.default()``),
+    against ``run_odometry`` + ``refine_with_loop_closures`` called
+    directly on the same tree."""
+    import inspect
+    import tempfile
+
+    from align3d_torch import cli
+    from align3d_torch.io.datasets import TumRgbdDataset
+    from align3d_torch.odometry import refine_with_loop_closures, run_odometry
+    from align3d_torch.ops.bilateral import BilateralFilter
+    from align3d_torch.parallel import pose_graph as pg
+    from align3d_torch.range_image import RangeImageBuilder
+    from align3d_torch.trajectory import Trajectory
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, PALINDROME)
+        saved = Path(tmp) / "refined.tum"
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        rc = cli.main(["odometry", "tum", str(tree), "--loop-closure", "--save-trajectory", str(saved), "-q",
+                       "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+        text = saved.read_text()
+        ds = TumRgbdDataset.load(str(tree))
+        builder = RangeImageBuilder(bilateral_filter=BilateralFilter())
+        raw = run_odometry(ds, DEVICE, range_builder=builder)
+        direct = refine_with_loop_closures(ds, raw, DEVICE, range_builder=builder)
+    n = len(PALINDROME)
+    # The candidates refine_with_loop_closures proposes with its defaults, as the command line calls it.
+    defaults = inspect.signature(refine_with_loop_closures).parameters
+    closures = pg.propose_loop_closures(
+        raw.trajectory, **{k: defaults[k].default for k in ("min_separation", "max_translation", "max_candidates")})
+    # Every frame built once by odometry and two by each closure, each
+    # build one K2 and one K3 (form (b)); 70 K1 a pair and a closure.
+    want = {"icp": STEP_ITERATIONS * (n - 1 + len(closures)), "splat": n + 2 * len(closures),
+            "slice": n + 2 * len(closures), "slice_a": 0, "normalize": 0}
+    from_cli = Trajectory.from_tum(text).to(DEVICE).camera_to_world
+    same_text = text == direct.trajectory.to_tum()
+    gap = max_pose_gap(torch, from_cli, direct.trajectory.camera_to_world)
+    out = {"exit_code": rc, "closures": len(closures), "launches": launches, "launches_expected": want,
+           "saved_tum_text_equal_direct": same_text, "saved_vs_direct_max_abs": gap, "wall_s": wall,
+           "ate_translation": {"odometry": float(raw.metrics.translation),
+                               "refined": float(direct.metrics.translation)}}
+    failures = []
+    if rc != 0:
+        failures.append(f"8b: the command line exited {rc}")
+    if launches != want:
+        failures.append(f"8b: launches {launches}, expected {want}")
+    if not (same_text or gap <= CLI_DIRECT_ATOL):
+        failures.append(f"8b: the command line's trajectory is {gap} from the direct call's")
+    return out, failures
+
+
+def pose_graph_path(torch) -> tuple[dict, list]:
+    """Phase 8c: the 500-pose graph, ``solver="auto"`` (CG), on the card and
+    on the CPU; one PCG call under ``set_sync_debug_mode("error")``; the
+    dense solver at 64 poses on the card and on the CPU."""
+    from align3d_torch.optim.pcg import pcg
+    from align3d_torch.parallel import pose_graph as pg
+
+    graph_cpu, gt = ring_graph(torch, pg, PG_POSES)
+    graph = graph_to(pg, graph_cpu, DEVICE)
+
+    def run(cg_iters):
+        iters = PG_CG_ITERS if cg_iters is None else cg_iters
+        return pg.optimize(graph, iterations=PG_ITERATIONS, solver="auto", cg_iters=iters)
+
+    card = run(None)
+    cpu_t0 = time.perf_counter()
+    cpu = pg.optimize(graph_cpu, iterations=PG_ITERATIONS, solver="auto", cg_iters=PG_CG_ITERS)
+    cpu_ms = (time.perf_counter() - cpu_t0) * 1e3
+    err_before, err_after = pose_err(torch, graph_cpu.nodes, gt), pose_err(torch, card.to("cpu"), gt)
+    gap = max_pose_gap(torch, card, cpu)
+    prof = solver_profile(torch, run, PG_ITERATIONS * PG_CG_ITERS)
+    syncs = syncs_in(torch, lambda: run(None))
+
+    # One PCG call of PG_CG_ITERS trips on the first GN system, where any
+    # host synchronisation raises.
+    n = PG_POSES
+    hdiag, hij, g = pg._block_system(graph.nodes, graph.edges, graph.measurements, graph.weights, n)
+    matvec, precond = pg._cg_operators(pg._finalize_diag(hdiag, 1e-6), hij, graph.edges)
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pcg(matvec, precond, g, PG_CG_ITERS)
+    except RuntimeError as exc:
+        sync_error = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    dense_cpu, _ = ring_graph(torch, pg, PG_DENSE_POSES)
+    dense_card = pg.optimize(graph_to(pg, dense_cpu, DEVICE), iterations=PG_ITERATIONS, solver="auto")
+    dense_ref = pg.optimize(dense_cpu, iterations=PG_ITERATIONS, solver="auto")
+    dense_gap = max_pose_gap(torch, dense_card, dense_ref)
+    out = {"poses": n, "edges": int(graph.edges.shape[0]), "iterations": PG_ITERATIONS, "cg_iters": PG_CG_ITERS,
+           "err_before": err_before, "err_after": err_after, "card_vs_cpu_max_abs": gap, "cpu_host_ms": cpu_ms,
+           **prof, "host_syncs_per_optimize": syncs, "pcg_sync_error": sync_error,
+           "dense": {"poses": PG_DENSE_POSES, "card_vs_cpu_max_abs": dense_gap}}
+    failures = []
+    if not err_after < 0.6 * err_before:
+        failures.append(f"8c: error {err_after} not below 0.6 x {err_before}")
+    if not gap <= PG_CARD_CPU_ATOL:
+        failures.append(f"8c: the card's poses are {gap} from the CPU's")
+    if sync_error is not None:
+        failures.append(f"8c: a PCG trip synchronised with the host: {sync_error}")
+    if not dense_gap <= PG_DENSE_CARD_CPU_ATOL:
+        failures.append(f"8c: the dense solve on the card is {dense_gap} from the CPU's")
+    return out, failures
+
+
+def bundle_adjustment_path(torch) -> tuple[dict, list]:
+    """Phase 8d: bundle adjustment at 500 poses x 50,000 landmarks x 200,000
+    observations, ``solver="auto"`` (COO), on the card and on the CPU; the
+    dense solver on the 6 x 40 scene on the card and on the CPU."""
+    import dataclasses
+
+    from align3d_torch.parallel import bundle_adjustment as ba
+
+    problem_cpu = ba_large(torch, ba, *BA_SIZE)
+    problem = problem_to(problem_cpu, DEVICE)
+
+    def run(cg_iters):
+        iters = BA_CG_ITERS if cg_iters is None else cg_iters
+        return ba.optimize(problem, iterations=BA_ITERATIONS, solver="auto", cg_iters=iters)
+
+    poses, landmarks = run(None)
+    cpu_t0 = time.perf_counter()
+    cpu_poses, cpu_landmarks = ba.optimize(problem_cpu, iterations=BA_ITERATIONS, solver="auto", cg_iters=BA_CG_ITERS)
+    cpu_ms = (time.perf_counter() - cpu_t0) * 1e3
+    err0 = float(ba.mean_reprojection_error(problem))
+    err = float(ba.mean_reprojection_error(dataclasses.replace(problem, poses=poses, landmarks=landmarks)))
+    cpu_err = float(ba.mean_reprojection_error(dataclasses.replace(problem_cpu, poses=cpu_poses,
+                                                                   landmarks=cpu_landmarks)))
+    gap = max(max_pose_gap(torch, poses, cpu_poses), float((landmarks.cpu() - cpu_landmarks).abs().max()))
+    prof = solver_profile(torch, run, BA_ITERATIONS * BA_CG_ITERS)
+    syncs = syncs_in(torch, lambda: run(None))
+
+    scene_cpu, poses_gt, landmarks_gt = ba_scene(torch, ba)
+    d_poses, d_landmarks = ba.optimize(problem_to(scene_cpu, DEVICE), iterations=8, solver="auto")
+    r_poses, r_landmarks = ba.optimize(scene_cpu, iterations=8, solver="auto")
+    dense_gap = max(max_pose_gap(torch, d_poses, r_poses), float((d_landmarks.cpu() - r_landmarks).abs().max()))
+    dense_err = float(ba.mean_reprojection_error(dataclasses.replace(scene_cpu, poses=d_poses.to("cpu"),
+                                                                     landmarks=d_landmarks.cpu())))
+    out = {"poses": BA_SIZE[0], "landmarks": BA_SIZE[1], "observations": BA_SIZE[2], "iterations": BA_ITERATIONS,
+           "cg_iters": BA_CG_ITERS, "err0_px": err0, "err_px": err, "cpu_err_px": cpu_err,
+           "card_vs_cpu_max_abs": gap, "cpu_host_ms": cpu_ms, **prof, "host_syncs_per_optimize": syncs,
+           "dense": {"poses": 6, "landmarks": 40, "card_vs_cpu_max_abs": dense_gap, "err_px": dense_err}}
+    failures = []
+    if not err < 0.2 * err0:
+        failures.append(f"8d: reprojection error {err} not below 0.2 x {err0}")
+    if not gap <= BA_CARD_CPU_ATOL:
+        failures.append(f"8d: the card's solution is {gap} from the CPU's")
+    if not (dense_gap <= BA_DENSE_CARD_CPU_ATOL and dense_err < 1e-2):
+        failures.append(f"8d: the dense scene on the card: {dense_gap} from the CPU's, error {dense_err} px")
+    return out, failures
+
+
+def global_refinement(torch, dataset, counters) -> tuple[dict, list]:
+    """Phase 8; returns (what it measured, its failures)."""
+    out, failures = {}, []
+    for name, path in (("palindrome", lambda: palindrome_path(torch, dataset, counters)),
+                       ("cli", lambda: loop_closure_cli(torch, dataset, counters)),
+                       ("pose_graph", lambda: pose_graph_path(torch)),
+                       ("bundle_adjustment", lambda: bundle_adjustment_path(torch))):
+        t0 = time.perf_counter()
+        out[name], failed = path()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        failures += failed
+    return out, failures
 
 
 def main() -> int:
@@ -1381,11 +1828,20 @@ def main() -> int:
             and ds["color_share_off"] <= DOWNSAMPLE_COLOR_SHARE):
         return fail(f"RgbdFrame.downsample on the card differs from the CPU: {ds}")
     done("phase 7")
+
+    # -- 8. global refinement --------------------------------------------------
+    refinement, failures = global_refinement(torch, dataset, counters)
+    print("global refinement: " + json.dumps(refinement))
+    if failures:
+        return fail("; ".join(failures))
+    done("phase 8")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
                "throughput, bilateral on (4d)": throughput["bilateral_on"]["launches"],
-               "mixed series (4d)": throughput["mixed"]["launches"]}
+               "mixed series (4d)": throughput["mixed"]["launches"],
+               "loop closure, 18-frame palindrome, no filter (8a)": refinement["palindrome"]["launches"],
+               "loop closure, command line, TUM palindrome (8b)": refinement["cli"]["launches"]}
 
     def entry(name, source, replaces, key, checked, err_kind, **extra):
         err, (ms, call_ms), (plain_ms, plain_call_ms), bnd, lib = checked

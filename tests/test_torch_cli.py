@@ -2,7 +2,7 @@
 package's (``align3d_tpu/cli.py``): JAX odometry command lines that use only
 flags the port has parse to the same values with both parsers, and the JAX
 flags the port lacks are exactly those that wait for later modules
-(ROADMAP Queue 1: loop closure, the viewer)."""
+(ROADMAP Queue 1: the viewer)."""
 
 import argparse
 
@@ -14,8 +14,8 @@ from align3d_torch import cli
 
 SAMPLE1 = "tests/data/rgbd/sample1"
 SHARED = ("format", "dataset", "max_frames", "no_bilateral", "engine", "coarse_exact", "quiet", "save_trajectory",
-          "checkpoint", "checkpoint_every")
-WAITING = {"--loop-closure", "--show"}
+          "checkpoint", "checkpoint_every", "loop_closure")
+WAITING = {"--show"}
 
 COMMAND_LINES = [
     ["odometry", "slamtb", SAMPLE1],
@@ -27,6 +27,7 @@ COMMAND_LINES = [
     ["odometry", "tum", "rgbd_dataset_freiburg1_desk", "--checkpoint", "ck.npz"],
     ["odometry", "ilrgbd", "bedroom", "20", "--checkpoint", "ck.npz", "--checkpoint-every", "3", "-q"],
     ["odometry", "slamtb", SAMPLE1, "--checkpoint-every", "1", "--save-trajectory", "out.tum"],
+    ["odometry", "tum", "rgbd_dataset_freiburg1_desk", "--loop-closure", "--save-trajectory", "out.tum"],
 ]
 
 

@@ -25,17 +25,14 @@ UNPORTED_NAMES = {
 }
 PYTREE = {"tree_flatten", "tree_unflatten"}
 
-# ROADMAP Queue 1, items 3-6: global refinement, distribution, viz and the
-# viewer, profiling.
+# ROADMAP Queue 1, items 4-6: distribution, viz and the viewer, profiling.
 TO_COME_MODULES = {
-    "optim/pcg.py", "parallel/pose_graph.py", "parallel/bundle_adjustment.py",  # item 3
     "parallel/sequence.py", "parallel/multihost.py",  # item 4
     "viz/__init__.py", "viz/dataset_viewer.py", "viz/datatypes.py", "viz/interactive.py", "viz/manager.py",
     "viz/render.py", "viz/scene.py", "viz/sphere.py", "viz/viewers.py", "viz/virtual_camera.py",  # item 5
     "utils/__init__.py", "utils/profiling.py",  # item 6
 }
 TO_COME_NAMES = {
-    "odometry.py": {"refine_with_loop_closures"},  # item 3
     "parallel/batch.py": {"make_mesh"},  # item 4
     "cli.py": {"cmd_viewer"},  # item 5
 }

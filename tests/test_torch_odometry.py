@@ -157,12 +157,27 @@ def test_port_never_imports_jax():
         "                  MsIcpParams.repeat(2, IcpParams(max_iterations=2)), 2, BilateralFilter(), 'cpu')\n"
         "roofline.fma_chains(torch.ones(8), 1)\n"
         "roofline.table_gather(torch.arange(64, dtype=torch.int32), torch.zeros(8, dtype=torch.int32), 1)\n"
+        # Global refinement: one tiny pose graph and one tiny bundle adjustment.
+        "from align3d_torch.camera import CameraIntrinsics\n"
+        "from align3d_torch.optim.pcg import pcg\n"
+        "from align3d_torch.parallel import bundle_adjustment as ba, pose_graph as pg\n"
+        "from align3d_torch.odometry import refine_with_loop_closures\n"
+        "from align3d_torch.se3 import Transform\n"
+        "graph = pg.PoseGraph.from_trajectory(r.trajectory)\n"
+        "nodes = pg.optimize(graph.with_edge(0, 2, graph.measurements[0] @ graph.measurements[1]), iterations=2)\n"
+        "lm = torch.tensor([[-0.5, -0.5, 2.0], [0.5, -0.5, 2.5], [-0.5, 0.5, 3.0], [0.5, 0.5, 2.0]])\n"
+        "uv = lm[:, :2] * 525.0 / lm[:, 2:] + torch.tensor([319.5, 239.5])\n"
+        "prob = ba.BAProblem(Transform.identity((2,)), lm + 0.01, torch.tensor([0] * 4 + [1] * 4),\n"
+        "                    torch.arange(4).repeat(2), uv.repeat(2, 1), torch.ones(8),\n"
+        "                    CameraIntrinsics(525.0, 525.0, 319.5, 239.5, 640, 480), obs_z=lm[:, 2].repeat(2))\n"
+        "poses, lms = ba.optimize(prob, iterations=2)\n"
+        "assert torch.isfinite(nodes.translation).all() and torch.isfinite(lms).all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print('LOADED', bad, len(r.trajectory), tuple(vn.shape), len(t))\n"
+        "print('LOADED', bad, len(r.trajectory), tuple(vn.shape), len(t), len(nodes.translation), tuple(lms.shape))\n"
     )
     proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert f"LOADED [] {FRAMES} (480, 3) 3" in proc.stdout
+    assert f"LOADED [] {FRAMES} (480, 3) 3 {FRAMES} (4, 3)" in proc.stdout
 
 
 @pytest.mark.slow
