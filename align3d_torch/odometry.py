@@ -129,10 +129,10 @@ def refine_with_loop_closures(
     candidates from the odometry trajectory (pose distance), measure each
     candidate's relative pose with multiscale ICP seeded from the odometry
     estimate, and optimize the pose graph (odometry chain + closure edges
-    of weight ``closure_weight``) by Gauss-Newton. ``mesh`` must be None:
-    the sharded solve is not ported yet (ROADMAP Queue 1 item 4)."""
-    if mesh is not None:
-        raise NotImplementedError(pg.SHARDING_NOT_PORTED)
+    of weight ``closure_weight``) by Gauss-Newton, its edges sharded over
+    ``mesh`` when one is given (:func:`align3d_torch.parallel.pose_graph.
+    optimize`; ``device`` must then be on the mesh's device type). The
+    closures are measured on every rank."""
     device = torch.device(device)
     range_builder = range_builder or RangeImageBuilder()
     icp_params = icp_params or MsIcpParams.default()
@@ -148,7 +148,7 @@ def refine_with_loop_closures(
         z = MultiscaleAlign(icp_params, target).align(source, initial_transform=traj.get_relative_transform(j, i))
         edges.append((i, j, z, closure_weight))
 
-    refined = pg.refine_trajectory(traj, loop_edges=edges, iterations=iterations)
+    refined = pg.refine_trajectory(traj, loop_edges=edges, iterations=iterations, mesh=mesh)
     metrics = None
     gt = dataset.trajectory()
     if gt is not None:

@@ -12,11 +12,23 @@ by a parallel prefix scan. It waits for the device once, to plan the
 bilateral filter's depth buckets, and otherwise not until the caller reads
 the trajectory.
 
-The JAX package's ``mesh=`` argument (the pair axis sharded over devices)
-and ``make_mesh`` are not ported yet (ROADMAP, distribution).
+Sharding (:func:`make_mesh`, ``odometry_step(mesh=)``): the N - 1 pairs
+are split into W contiguous shares, one a rank of the 1-D mesh. Each rank
+moves only the frames of its share (``[lo, hi + 1]``) to its device and
+runs the filter, the pyramids and the align on them alone: no collective
+until the relative poses, which one all-gather (W broadcasts of the (per,
+3, 4) poses, :mod:`align3d_torch.parallel.collectives`) gives every rank;
+the prefix scan then runs replicated. Each pair is the same computation
+as unsharded (K1 over B pairs is bitwise K1 over one, and each frame's
+bucketed filter is bitwise its own), so the trajectory is bitwise the
+unsharded one. A batch sharded on the frame axis (a DTensor from
+:func:`align3d_torch.parallel.multihost.host_local_batch`) goes to the
+sequence-parallel form, :mod:`align3d_torch.parallel.sequence`.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -25,9 +37,26 @@ from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp.image_icp import align_batched
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.ops.bilateral import BilateralFilter, nonzero_min_max, plan_depth_buckets
+from align3d_torch.parallel import collectives as col
 from align3d_torch.range_image import RangeImage, build_pyramid_impl
 from align3d_torch.se3 import Transform
 from align3d_torch.trajectory import Trajectory, accumulate_scan
+
+BATCH_AXIS = "pairs"
+
+
+def make_mesh(n_devices: int | None = None, devices="cuda"):
+    """1-D device mesh over the batch (``"pairs"``) axis: one rank of the
+    process group per mesh entry, on ``devices`` (a device type, ``"cuda"``
+    or ``"cpu"``). In a process with no group it first makes a one-rank
+    group (NCCL for CUDA, gloo for the CPU), as the JAX package's
+    single-process mesh spans this process's devices; several processes
+    join one group first (:func:`align3d_torch.parallel.multihost.initialize`).
+    ``n_devices``, when given, must be the group's size."""
+    mesh = col.one_dim_mesh(devices, BATCH_AXIS)
+    if n_devices is not None and n_devices != mesh.size():
+        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size()} ranks")
+    return mesh
 
 
 def build_pyramids_batched(
@@ -87,6 +116,54 @@ def filter_buckets(filt: BilateralFilter, depths: torch.Tensor, quantum: int = 1
     return filt.filter_static_buckets(depths, cmin, plan), plan
 
 
+def stage(timer, name: str, force=None):
+    """``timer.stage(name, force)`` of a
+    :class:`align3d_torch.utils.profiling.StageTimer` (which, ``force``
+    being on the card, ends the stage with a synchronise), or nothing
+    without one."""
+    return contextlib.nullcontext() if timer is None else timer.stage(name, force)
+
+
+def frame_inputs(colors, depths, index, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frames ``index`` (a slice or an index array) of the inputs (numpy,
+    tensors or DTensors, whose local part is taken) on ``device``: colours
+    u8, depths int32."""
+    colors = torch.as_tensor(col.local(colors))[index].to(device)
+    depths = col.local(depths)
+    if isinstance(depths, np.ndarray):
+        depths = torch.from_numpy(depths[index].astype(np.int32))
+    else:
+        depths = depths[index]
+    return colors, depths.to(device=device, dtype=torch.int32).contiguous()
+
+
+def frame_scales(depth_scale, index, device):
+    """``depth_scale`` as it is if it is one number, else (one per frame)
+    a tensor of frames ``index``'s on ``device``."""
+    if isinstance(depth_scale, (list, tuple, np.ndarray)):
+        depth_scale = torch.as_tensor(np.asarray(depth_scale, np.float32))
+    if isinstance(depth_scale, torch.Tensor) and depth_scale.ndim:
+        return depth_scale[index].to(device)
+    return depth_scale
+
+
+def align_frames(intrinsics, depth_scale, colors, depths, params, pyramid_levels, bilateral_filter,
+                 timer=None) -> Transform:
+    """The relative poses of the F - 1 adjacent pairs of F frames on one
+    device (source frame i, target frame i - 1): filter, pyramids, align."""
+    if bilateral_filter is not None:
+        with stage(timer, "filter", depths):
+            depths, _ = filter_buckets(bilateral_filter, depths)
+    if depths.shape[0] < 2:
+        return Transform.identity((0,), device=depths.device)
+    with stage(timer, "pyramids", depths):
+        pyramid = build_pyramids_batched(intrinsics, depth_scale, colors, depths, pyramid_levels=pyramid_levels)
+    sources = [level.frames(slice(1, None)) for level in pyramid]
+    targets = [level.frames(slice(None, -1)) for level in pyramid]
+    with stage(timer, "align", depths):
+        return multiscale_align_batched(targets, sources, params)
+
+
 def odometry_step(
     intrinsics: CameraIntrinsics,
     depth_scale,
@@ -95,28 +172,44 @@ def odometry_step(
     params: MsIcpParams | None = None,
     pyramid_levels: int = 3,
     bilateral_filter: BilateralFilter | None = None,
-    device="cuda",
+    device=None,
+    mesh=None,
+    timer=None,
 ) -> Trajectory:
-    """Whole-sequence odometry as one batched computation on ``device``.
+    """Whole-sequence odometry as one batched computation on ``device``
+    (default ``"cuda"``).
 
     With ``bilateral_filter``, filters the depths through depth buckets
     first (as ``benches/bench_odometry.py`` does); builds the pyramids of
     all N frames; aligns the N - 1 adjacent pairs (source frame i, target
     frame i - 1, as the sequential `run_odometry`); composes the relative poses with
     a parallel prefix scan. ``depth_scale`` is a float or one per frame.
+
+    With ``mesh`` (:func:`make_mesh`), every rank passes the whole
+    sequence (or a replicated DTensor), runs on the mesh's device (which
+    ``device``, if given, must name) and aligns its share of the pairs; the
+    module docstring says what is exchanged. Every rank returns the whole
+    trajectory. ``timer`` (a StageTimer) times the stages, each ended by a
+    synchronise.
     """
     params = params or MsIcpParams.default()
-    device = torch.device(device)
-    colors = torch.as_tensor(colors).to(device)
-    if isinstance(depths, np.ndarray):
-        depths = torch.from_numpy(depths.astype(np.int32))
-    depths = depths.to(device=device, dtype=torch.int32).contiguous()
-    if isinstance(depth_scale, (list, tuple, np.ndarray)):
-        depth_scale = torch.as_tensor(np.asarray(depth_scale, np.float32), device=device)
-    if bilateral_filter is not None:
-        depths, _ = filter_buckets(bilateral_filter, depths)
-    pyramid = build_pyramids_batched(intrinsics, depth_scale, colors, depths, pyramid_levels=pyramid_levels)
-    sources = [level.frames(slice(1, None)) for level in pyramid]
-    targets = [level.frames(slice(None, -1)) for level in pyramid]
-    relative = multiscale_align_batched(targets, sources, params)
-    return accumulate_scan(relative)
+    if mesh is not None and col.is_sharded(colors):
+        from align3d_torch.parallel.sequence import odometry_sequence_parallel
+
+        return odometry_sequence_parallel(intrinsics, depth_scale, colors, depths, mesh, params, pyramid_levels,
+                                          bilateral_filter=bilateral_filter, timer=timer)
+    device = col.resolve_device(mesh, device)
+    n = col.local(colors).shape[0]
+    if mesh is None:
+        lo, hi, per = 0, n - 1, n - 1
+    else:
+        lo, hi, per = col.share(n - 1, mesh)
+    frames = slice(lo, hi + 1)
+    relative = align_frames(intrinsics, frame_scales(depth_scale, frames, device),
+                            *frame_inputs(colors, depths, frames, device), params, pyramid_levels, bilateral_filter,
+                            timer)
+    if mesh is not None:
+        with stage(timer, "gather", relative.rotation):
+            relative = col.gather_poses(mesh, relative, per)[: n - 1]
+    with stage(timer, "scan", relative.rotation):
+        return accumulate_scan(relative)

@@ -34,8 +34,18 @@ Everything runs in float32 as in the JAX package but the dense Schur
 solve, which runs in float64 (``torch.linalg.solve_ex``, no host sync) and
 casts the pose update back to float32: the port's rule for dense
 Gauss-Newton systems (:mod:`align3d_torch.optim.gauss_newton`); the JAX
-package solves in float32 only because a TPU has no fast float64. The
-``mesh=`` (sharded) form is not ported yet: ROADMAP Queue 1 item 4.
+package solves in float32 only because a TPU has no fast float64.
+
+Sharding (``mesh=``, a 1-D mesh of W ranks): every rank holds the whole
+problem; the observations are padded to a multiple of W (pose 0, landmark
+0, uvz of ones, weight 0: the JAX package's padding, which adds nothing to
+any sum) and rank r takes the r-th contiguous block. ``"dense"``
+all-reduces ``hpp``, ``hll``, the densified fill-in, ``gp`` and ``gl`` in
+one packed ``all_reduce`` and solves replicated. ``"coo"`` all-reduces
+``hpp``, ``hll``, ``gp`` and ``gl`` once, keeps the fill-in blocks on their
+shard, and all-reduces ``W^T v`` and ``W z`` in every product: two
+collectives a PCG trip, and still no host sync. Every rank returns the
+same poses and landmarks.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ import torch
 
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.optim.pcg import pcg
-from align3d_torch.parallel.pose_graph import SHARDING_NOT_PORTED, _bmv, _segment_sum
+from align3d_torch.parallel import collectives as col
+from align3d_torch.parallel.pose_graph import _bmv, _segment_sum
 from align3d_torch.se3 import Transform
 
 
@@ -149,12 +160,14 @@ def _gauge(hpp, gp):
     return hpp, gp
 
 
-def _schur_solve_coo(hpp, hll, w_obs, obs_pose, obs_landmark, gp, gl, damping: float, cg_iters: int):
+def _schur_solve_coo(hpp, hll, w_obs, obs_pose, obs_landmark, gp, gl, damping: float, cg_iters: int, mesh=None):
     """Schur-reduced solve with the fill-in kept per observation: every
     product with W or W^T is a gather, a batched product and an
     ``index_add_`` over the observations. The reduced pose system
     (matvec: S v = (Hpp + damping) v - W Hll^{-1} W^T v) is solved with
-    block-Jacobi PCG. Returns (dp (N, 6), dl (M, 3))."""
+    block-Jacobi PCG. With ``mesh`` (the JAX package's ``psum_axis``), the
+    observations are the rank's shard and every product with W or W^T is
+    all-reduced. Returns (dp (N, 6), dl (M, 3))."""
     n, m = hpp.shape[0], hll.shape[0]
     eye3 = torch.eye(3, dtype=torch.float32, device=hll.device)
     hll_inv, _ = torch.linalg.inv_ex(hll + damping * eye3)
@@ -163,11 +176,14 @@ def _schur_solve_coo(hpp, hll, w_obs, obs_pose, obs_landmark, gp, gl, damping: f
     hpp, gp = _gauge(hpp, gp)
     w_obs_t = w_obs.transpose(-1, -2)
 
+    def psum(x):
+        return x if mesh is None else col.all_reduce(mesh, x)
+
     def wt_v(v):  # W^T v: (N, 6) -> (M, 3)
-        return _segment_sum(_bmv(w_obs_t, v.index_select(0, obs_pose)), obs_landmark, m)
+        return psum(_segment_sum(_bmv(w_obs_t, v.index_select(0, obs_pose)), obs_landmark, m))
 
     def w_z(z):  # W z: (M, 3) -> (N, 6)
-        return _segment_sum(_bmv(w_obs, z.index_select(0, obs_landmark)), obs_pose, n)
+        return psum(_segment_sum(_bmv(w_obs, z.index_select(0, obs_landmark)), obs_pose, n))
 
     rhs = gp - w_z(_bmv(hll_inv, gl))
     hpp_damped = hpp + damping * torch.eye(6, dtype=torch.float32, device=hpp.device)
@@ -214,6 +230,22 @@ def _obs_uvz(problem: BAProblem, with_depth: bool) -> torch.Tensor:
     return torch.cat([problem.obs_uv, z], dim=1)
 
 
+def _observation_shard(problem: BAProblem, obs_uvz, mesh):
+    """This rank's block of (obs_pose, obs_landmark, obs_uvz, weights), the
+    observations padded to a multiple of the mesh size with pose 0,
+    landmark 0, uvz of ones and weight 0."""
+    obs = (problem.obs_pose, problem.obs_landmark, obs_uvz, problem.weights)
+    if mesh is None:
+        return obs
+    col.check_device(mesh, *obs, problem.landmarks)
+    pad = (-problem.obs_pose.shape[0]) % col.world(mesh)
+    fills = (0, 0, 1.0, 0.0)
+    obs = [col.pad_rows(x, pad, torch.full(x.shape[1:], fill, dtype=x.dtype, device=x.device))
+           for x, fill in zip(obs, fills)]
+    lo, hi, _ = col.share(obs[0].shape[0], mesh)
+    return tuple(x[lo:hi] for x in obs)
+
+
 def optimize(
     problem: BAProblem,
     iterations: int = 10,
@@ -227,28 +259,30 @@ def optimize(
     ``solver``: ``"dense"`` builds the (N, M, 6, 3) fill-in and the exact
     dense Schur complement (small problems); ``"coo"`` keeps per-observation
     blocks and solves the reduced pose system with ``cg_iters`` trips of
-    PCG, O(O) memory; ``"auto"`` is dense when N * M <= 1,000,000. ``mesh``
-    must be None: the sharded solve is not ported yet (ROADMAP Queue 1
-    item 4).
+    PCG, O(O) memory; ``"auto"`` is dense when N * M <= 1,000,000. With
+    ``mesh``, the observations are sharded over its ranks (module
+    docstring) and every rank returns the same solution.
     """
-    if mesh is not None:
-        raise NotImplementedError(SHARDING_NOT_PORTED)
     n, m = problem.n_poses, problem.n_landmarks
     if solver == "auto":
         solver = "dense" if n * m <= 1_000_000 else "coo"
     if solver not in ("dense", "coo"):
         raise ValueError(f"solver must be 'auto', 'dense' or 'coo', got {solver!r}")
     with_depth = problem.obs_z is not None
-    obs_uvz = _obs_uvz(problem, with_depth)
-    op, ol = problem.obs_pose, problem.obs_landmark
+    op, ol, obs_uvz, weights = _observation_shard(problem, _obs_uvz(problem, with_depth), mesh)
     poses, landmarks = problem.poses, problem.landmarks
     for _ in range(iterations):
-        hpp, hll, w_obs, gp, gl, _, _ = _partials(poses, landmarks, op, ol, obs_uvz, problem.weights,
-                                                  problem.intrinsics, n, m, with_depth, problem.depth_weight)
+        hpp, hll, w_obs, gp, gl, _, _ = _partials(poses, landmarks, op, ol, obs_uvz, weights, problem.intrinsics, n, m,
+                                                  with_depth, problem.depth_weight)
         if solver == "dense":
-            dp, dl = _schur_solve(hpp, hll, _densify_w(w_obs, op, ol, n, m), gp, gl, damping)
+            w_blk = _densify_w(w_obs, op, ol, n, m)
+            if mesh is not None:
+                hpp, hll, w_blk, gp, gl = col.all_reduce(mesh, hpp, hll, w_blk, gp, gl)
+            dp, dl = _schur_solve(hpp, hll, w_blk, gp, gl, damping)
         else:
-            dp, dl = _schur_solve_coo(hpp, hll, w_obs, op, ol, gp, gl, damping, cg_iters)
+            if mesh is not None:
+                hpp, hll, gp, gl = col.all_reduce(mesh, hpp, hll, gp, gl)
+            dp, dl = _schur_solve_coo(hpp, hll, w_obs, op, ol, gp, gl, damping, cg_iters, mesh)
         poses, landmarks = poses @ Transform.exp(dp), landmarks + dl
     return poses, landmarks
 

@@ -23,8 +23,20 @@ float32 only because a TPU has no fast float64.
 
 Loop-closure candidates (:func:`propose_loop_closures`) follow the
 pose-distance heuristic on the host; measuring them is the caller's job
-(:func:`align3d_torch.odometry.refine_with_loop_closures`). The ``mesh=``
-(sharded) form is not ported yet: ROADMAP Queue 1 item 4.
+(:func:`align3d_torch.odometry.refine_with_loop_closures`).
+
+Sharding (``mesh=``, a 1-D mesh of W ranks): every rank holds the whole
+graph; the edges are padded to a multiple of W with zero-weight copies of
+the last edge (the JAX package's padding, which adds nothing to any sum)
+and rank r takes the r-th contiguous block. Each Gauss-Newton iteration
+builds the block system of the rank's edges and all-reduces the diagonal
+blocks and the gradient (one packed ``all_reduce``); damping and the
+gauge are applied once, after it (applied per shard they would count W
+times). The CG solver keeps the off-diagonal blocks on their shard: each
+PCG trip all-reduces the shard's off-diagonal products, one collective a
+trip and still no host sync. The dense solver all-reduces the assembled
+off-diagonal part of the (6N, 6N) system. The solve runs replicated, so
+every rank returns the same poses.
 """
 
 from __future__ import annotations
@@ -35,10 +47,9 @@ import numpy as np
 import torch
 
 from align3d_torch.optim.pcg import pcg
+from align3d_torch.parallel import collectives as col
 from align3d_torch.se3 import Transform
 from align3d_torch.trajectory import Trajectory
-
-SHARDING_NOT_PORTED = "mesh= (the sharded solve) is not ported yet: ROADMAP Queue 1 item 4 (distribution)"
 
 
 @dataclasses.dataclass
@@ -182,46 +193,67 @@ def _bmv(mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     return (mats @ vecs[..., None])[..., 0]
 
 
-def _cg_operators(hdiag, hij, edges):
+def _cg_operators(hdiag, hij, edges, mesh=None):
     """(matvec, block-Jacobi preconditioner) of the block system, for
-    :func:`pcg`."""
+    :func:`pcg`; with ``mesh``, ``hij`` and ``edges`` are the rank's shard
+    and the off-diagonal products are all-reduced."""
     ei, ej = edges[:, 0], edges[:, 1]
     minv, _ = torch.linalg.inv_ex(hdiag)  # inv_ex checks nothing on the host
     hji = hij.transpose(-1, -2)
 
     def matvec(v):
-        out = _bmv(hdiag, v).index_add_(0, ei, _bmv(hij, v.index_select(0, ej)))
-        return out.index_add_(0, ej, _bmv(hji, v.index_select(0, ei)))
+        out = _bmv(hdiag, v) if mesh is None else torch.zeros_like(v)
+        out.index_add_(0, ei, _bmv(hij, v.index_select(0, ej))).index_add_(0, ej, _bmv(hji, v.index_select(0, ei)))
+        return out if mesh is None else _bmv(hdiag, v) + col.all_reduce(mesh, out)
 
     return matvec, lambda r: _bmv(minv, r)
 
 
-def _cg_step_update(nodes: Transform, hdiag, hij, g, edges, cg_iters: int) -> Transform:
+def _cg_step_update(nodes: Transform, hdiag, hij, g, edges, cg_iters: int, mesh=None) -> Transform:
     """One GN update from the block system by block-Jacobi PCG."""
-    update = -pcg(*_cg_operators(hdiag, hij, edges), g, cg_iters)
+    update = -pcg(*_cg_operators(hdiag, hij, edges, mesh), g, cg_iters)
     return nodes @ Transform.exp(update)
 
 
-def _dense_system(hdiag, hij, edges) -> torch.Tensor:
-    """The block system scattered into the dense (6N, 6N) matrix. Pose 0's
-    rows and columns are zero but for its identity block, as the JAX
-    package's dense gauge leaves them (there the block is (1 + damping) I:
-    pose 0's update is 0 either way, the other poses' are the same)."""
+def _dense_system(hdiag, hij, edges, mesh=None) -> torch.Tensor:
+    """The block system scattered into the dense (6N, 6N) matrix, the
+    off-diagonal part all-reduced over ``mesh``. Pose 0's rows and columns
+    are zero but for its identity block, as the JAX package's dense gauge
+    leaves them (there the block is (1 + damping) I: pose 0's update is 0
+    either way, the other poses' are the same)."""
     n = hdiag.shape[0]
     ei, ej = edges[:, 0], edges[:, 1]
     ar = torch.arange(n, device=hdiag.device)
     h = torch.zeros((n, n, 6, 6), dtype=torch.float32, device=hdiag.device)
-    h[ar, ar] = hdiag
     h.index_put_((ei, ej), hij, accumulate=True)
     h.index_put_((ej, ei), hij.transpose(-1, -2), accumulate=True)
+    if mesh is not None:
+        h = col.all_reduce(mesh, h)
+    h[ar, ar] += hdiag
     return h.permute(0, 2, 1, 3).reshape(n * 6, n * 6)
 
 
-def _dense_step_update(nodes: Transform, hdiag, hij, g, edges) -> Transform:
+def _dense_step_update(nodes: Transform, hdiag, hij, g, edges, mesh=None) -> Transform:
     """One GN update from the dense system, solved in float64."""
     n = hdiag.shape[0]
-    update, _ = torch.linalg.solve_ex(_dense_system(hdiag, hij, edges).double(), g.reshape(n * 6).double())
+    update, _ = torch.linalg.solve_ex(_dense_system(hdiag, hij, edges, mesh).double(), g.reshape(n * 6).double())
     return nodes @ Transform.exp(-update.to(torch.float32).reshape(n, 6))
+
+
+def _edge_shard(graph: "PoseGraph", mesh):
+    """This rank's block of the edges, measurements and weights, the edges
+    padded to a multiple of the mesh size with zero-weight copies of the
+    last edge."""
+    if mesh is None:
+        return graph.edges, graph.measurements, graph.weights
+    col.check_device(mesh, graph.edges, graph.weights, graph.nodes.rotation)
+    w = col.world(mesh)
+    pad = (-graph.edges.shape[0]) % w
+    edges = col.pad_rows(graph.edges, pad)
+    meas = Transform(col.pad_rows(graph.measurements.rotation, pad), col.pad_rows(graph.measurements.translation, pad))
+    weights = col.pad_rows(graph.weights, pad, torch.zeros((), dtype=graph.weights.dtype, device=graph.weights.device))
+    lo, hi, _ = col.share(edges.shape[0], mesh)
+    return edges[lo:hi], meas[lo:hi], weights[lo:hi]
 
 
 def optimize(
@@ -237,24 +269,26 @@ def optimize(
 
     ``solver``: ``"dense"`` solves the (6N, 6N) system directly (float64);
     ``"cg"`` runs ``cg_iters`` trips of block-Jacobi PCG on the block
-    system; ``"auto"`` picks CG above 64 poses. ``mesh`` must be None: the
-    sharded solve is not ported yet (ROADMAP Queue 1 item 4).
+    system; ``"auto"`` picks CG above 64 poses. With ``mesh``, the edges
+    are sharded over its ranks (module docstring) and every rank returns
+    the same poses.
     """
-    if mesh is not None:
-        raise NotImplementedError(SHARDING_NOT_PORTED)
     n = graph.nodes.rotation.shape[0]
     if solver == "auto":
         solver = "cg" if n > 64 else "dense"
     if solver not in ("cg", "dense"):
         raise ValueError(f"solver must be 'auto', 'cg' or 'dense', got {solver!r}")
+    edges, meas, weights = _edge_shard(graph, mesh)
     nodes = graph.nodes
     for _ in range(iterations):
-        hdiag, hij, g = _block_system(nodes, graph.edges, graph.measurements, graph.weights, n)
+        hdiag, hij, g = _block_system(nodes, edges, meas, weights, n)
+        if mesh is not None:
+            hdiag, g = col.all_reduce(mesh, hdiag, g)
         hdiag = _finalize_diag(hdiag, damping)
         if solver == "cg":
-            nodes = _cg_step_update(nodes, hdiag, hij, g, graph.edges, cg_iters)
+            nodes = _cg_step_update(nodes, hdiag, hij, g, edges, cg_iters, mesh)
         else:
-            nodes = _dense_step_update(nodes, hdiag, hij, g, graph.edges)
+            nodes = _dense_step_update(nodes, hdiag, hij, g, edges, mesh)
     return nodes
 
 
@@ -265,10 +299,9 @@ def refine_trajectory(
     mesh=None,
 ) -> Trajectory:
     """Trajectory -> pose graph (+ loop closures ``(i, j, Z, weight)``) ->
-    :func:`optimize` -> trajectory with the same timestamps."""
-    if mesh is not None:
-        raise NotImplementedError(SHARDING_NOT_PORTED)
+    :func:`optimize` (edges sharded over ``mesh``) -> trajectory with the
+    same timestamps."""
     graph = PoseGraph.from_trajectory(traj)
     for i, j, z, w in loop_edges or []:
         graph = graph.with_edge(i, j, z, w)
-    return Trajectory(optimize(graph, iterations=iterations), traj.times)
+    return Trajectory(optimize(graph, iterations=iterations, mesh=mesh), traj.times)

@@ -108,6 +108,27 @@ Run from the root of a checkout. Phases, each of which fails the run:
       iterations, 32 PCG trips): its gate (error below 0.2x), the card
       against the CPU and the same measurements as 8c; the dense solver on
       the 6 x 40 scene, card against CPU.
+9. Distribution, each path against its unsharded run on the card, first on
+   a one-rank NCCL mesh in this process (``make_mesh``), then on two
+   processes that both use this card over gloo (named explicitly: NCCL
+   refuses two ranks on one device), all printed as one ``distribution:``
+   JSON line:
+   a. ``odometry_step(mesh=)`` on the 65-frame real series, filter on:
+      bitwise the unsharded step; K1-K3 launches per rank, host ms per
+      stage (``StageTimer``: filter, pyramids, align, gather, scan), device
+      busy ms and peak memory per rank;
+   b. ``odometry_sequence_parallel`` on the same frames (65 pad to 66 at
+      two ranks; the halo stage added): bitwise the unsharded step;
+   c. the 500-pose graph of 8c (CG), edges sharded, and a 9-pose ring
+      (dense): within 1e-4 of unsharded; collectives per PCG trip (1);
+      at one rank, device activities per trip (8c: 35) and one PCG call
+      under ``set_sync_debug_mode("error")``;
+   d. BA at 8d's size (COO), observations sharded, and the 6 x 40 scene
+      (dense): within 1e-4 of unsharded; collectives per PCG trip (2);
+   e. at one rank, ``refine_with_loop_closures(mesh=)`` on 8a's palindrome
+      against the call without a mesh.
+   A rank that fails, or runs past ``DIST_TIMEOUT_S``, fails the run. The
+   two-rank times are host cost on one card, not scaling.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -166,6 +187,8 @@ PG_CARD_CPU_ATOL = 1e-3  # 8c: float32 CG on the 500-chain, card vs CPU (a 1e-7 
 PG_DENSE_CARD_CPU_ATOL = 1e-4  # 8c: float64 dense solve of float32 systems, card vs CPU
 BA_CARD_CPU_ATOL = 1e-4  # 8d: 32 float32 PCG trips, card vs CPU
 BA_DENSE_CARD_CPU_ATOL = 1e-4  # 8d: the dense Schur solve, card vs CPU
+DIST_SOLVE_ATOL = 1e-4  # 9c/9d vs unsharded: tests/test_pose_graph.py:86-103, test_bundle_adjustment.py:147-155
+DIST_TIMEOUT_S = 300  # 9: a rank still running after this fails the run
 
 # Published H100 SXM peaks at 700 W (the bounds are stated against them).
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1624,6 +1647,306 @@ def global_refinement(torch, dataset, counters) -> tuple[dict, list]:
     return out, failures
 
 
+def stage_ms(timer) -> dict:
+    """A StageTimer's totals in ms, by stage."""
+    return {name: total * 1e3 for name, total in timer.totals.items()}
+
+
+def launch_want(real, filt) -> dict:
+    """K1/K2/K3 launches of one filtered step over ``real``'s frames: 70 K1
+    (one a GN iteration over all pairs), one K2 and one K3 a depth bucket."""
+    from align3d_torch.tools.series import bucket_plan
+
+    buckets = len(bucket_plan(real.depths, filt))
+    return {"icp": STEP_ITERATIONS, "splat": buckets, "slice": buckets, "slice_a": 0, "normalize": 0}
+
+
+def distribution_paths(torch, mesh, counters, device) -> dict:
+    """Phase 9a-9d on ``mesh``, as one rank runs them: the sharded step and
+    the sequence-parallel step on the real series (filter on), each with
+    K1-K3's counts reset just before and read just after, its stages timed
+    (StageTimer), its device busy ms and the peak memory; the 500-pose graph
+    (CG) and the 9-pose ring (dense) with edges sharded; BA at 500 x 50k x
+    200k (COO) and the 6 x 40 scene (dense) with observations sharded.
+    Returns CPU tensors and numbers."""
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.ops.bilateral import BilateralFilter
+    from align3d_torch.parallel import bundle_adjustment as ba
+    from align3d_torch.parallel import collectives as col
+    from align3d_torch.parallel import pose_graph as pg
+    from align3d_torch.parallel.batch import odometry_step
+    from align3d_torch.parallel.sequence import odometry_sequence_parallel
+    from align3d_torch.tools import series
+    from align3d_torch.utils.profiling import StageTimer
+
+    real = series.real_frames()
+    colors, depths, scales = (t.to(device) for t in series_inputs(torch, real))
+    filt, params = BilateralFilter(), MsIcpParams.default()
+    steps = {"step": lambda timer=None: odometry_step(real.camera, scales, colors, depths, params, mesh=mesh,
+                                                      bilateral_filter=filt, timer=timer),
+             "sequence": lambda timer=None: odometry_sequence_parallel(real.camera, scales, colors, depths, mesh,
+                                                                      params, bilateral_filter=filt, timer=timer)}
+    out = {"rank": col.rank(mesh), "world": col.world(mesh), "backend": torch.distributed.get_backend(mesh.get_group()),
+           "launches_expected_unsharded": launch_want(real, filt)}
+    for name, run in steps.items():
+        run()  # warm: the first call plans and builds what the later ones reuse
+        torch.cuda.synchronize()
+        timer = StageTimer()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        traj = run(timer)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {"poses": (traj.camera_to_world.rotation.cpu(), traj.camera_to_world.translation.cpu()),
+                     "launches": launches, "host_ms": host, "stage_host_ms": stage_ms(timer),
+                     "peak_memory_bytes": peak, **device_profile(torch, run)}
+
+    graph, _ = ring_graph(torch, pg, PG_POSES)
+    graph = graph_to(pg, graph, device)
+
+    def pg_run(cg_iters):
+        return pg.optimize(graph, iterations=PG_ITERATIONS, solver="cg", mesh=mesh,
+                           cg_iters=PG_CG_ITERS if cg_iters is None else cg_iters)
+
+    def collectives(fn):
+        before = col.COLLECTIVES
+        result = fn()
+        return col.COLLECTIVES - before, result
+
+    # Collectives a PCG trip: a solve's, less the same solve's with no trips.
+    full, (pg_host, nodes) = collectives(lambda: host_ms(torch, lambda: pg_run(None), runs=1))
+    zero, _ = collectives(lambda: pg_run(0))
+    out["pose_graph"] = {"poses": (nodes.rotation.cpu(), nodes.translation.cpu()), "host_ms": pg_host,
+                         "collectives_per_optimize": full,
+                         "collectives_per_pcg_trip": (full - zero) / (PG_ITERATIONS * PG_CG_ITERS)}
+    dense, _ = ring_graph(torch, pg, 9)
+    dnodes = pg.optimize(graph_to(pg, dense, device), iterations=PG_ITERATIONS, solver="dense", mesh=mesh)
+    out["pose_graph_dense"] = {"poses": (dnodes.rotation.cpu(), dnodes.translation.cpu())}
+
+    problem = problem_to(ba_large(torch, ba, *BA_SIZE), device)
+
+    def ba_run(cg_iters):
+        return ba.optimize(problem, iterations=BA_ITERATIONS, solver="coo", mesh=mesh, cg_iters=cg_iters)
+
+    full, (ba_host, (bp, bl)) = collectives(lambda: host_ms(torch, lambda: ba_run(BA_CG_ITERS), runs=1))
+    zero, _ = collectives(lambda: ba_run(0))
+    out["bundle_adjustment"] = {"poses": (bp.rotation.cpu(), bp.translation.cpu()), "landmarks": bl.cpu(),
+                                "host_ms": ba_host, "collectives_per_optimize": full,
+                                "collectives_per_pcg_trip": (full - zero) / (BA_ITERATIONS * BA_CG_ITERS)}
+    scene, _, _ = ba_scene(torch, ba)
+    sp, sl = ba.optimize(problem_to(scene, device), iterations=8, solver="dense", mesh=mesh)
+    out["bundle_adjustment_dense"] = {"poses": (sp.rotation.cpu(), sp.translation.cpu()), "landmarks": sl.cpu()}
+    return out
+
+
+def distribution_rank(rank: int, world: int, store: str, out_dir: str, device: str) -> None:
+    """One rank of phase 9's two-rank run: both ranks on the current card,
+    over gloo (named explicitly: NCCL refuses two ranks on one device)."""
+    import datetime
+
+    import torch
+
+    from align3d_torch.ops import bilateral as bil
+    from align3d_torch.ops import icp_fused
+    from align3d_torch.parallel import multihost
+
+    torch.set_num_threads(2)
+    multihost.initialize(f"file://{store}", world, rank, local_device_ids=[0] if device == "cuda" else None,
+                         backend="gloo", timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = multihost.global_mesh(devices=device)
+        counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
+                    "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
+                    "normalize": (bil, "NORMALIZE_PASSES")}
+        out = distribution_paths(torch, mesh, counters, torch.device(device))
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, workdir: str, *args) -> None:
+    """``fn(rank, world, store, *args)`` in ``world`` new processes; raises
+    if one raises or if they are not done within DIST_TIMEOUT_S (then all
+    are killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, f"{workdir}/store", *args), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks still running after {DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+
+
+def pose_gap_pair(torch, a, b) -> float:
+    """Largest |difference| of two (rotation, translation) pairs."""
+    return max(float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max()))
+
+
+def bitwise_pair(torch, a, b) -> bool:
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def distribution(torch, dataset, counters, trip_activities_8c=None) -> tuple[dict, list]:
+    """Phase 9; returns (what it measured, its failures).
+    ``trip_activities_8c``: phase 8c's device activities a PCG trip, printed
+    beside the sharded trip's."""
+    import tempfile
+
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.io.datasets import SubsetDataset
+    from align3d_torch.ops.bilateral import BilateralFilter
+    from align3d_torch.odometry import refine_with_loop_closures, run_odometry
+    from align3d_torch.optim.pcg import pcg
+    from align3d_torch.parallel import bundle_adjustment as ba
+    from align3d_torch.parallel import collectives as col
+    from align3d_torch.parallel import pose_graph as pg
+    from align3d_torch.parallel.batch import make_mesh, odometry_step
+    from align3d_torch.tools import series
+
+    t0 = time.perf_counter()
+    failures = []
+    # The unsharded references, on the card.
+    real = series.real_frames()
+    colors, depths, scales = series_inputs(torch, real)
+    traj = odometry_step(real.camera, scales, colors, depths, MsIcpParams.default(), bilateral_filter=BilateralFilter(),
+                         device=DEVICE)
+    ref = {"step": (traj.camera_to_world.rotation.cpu(), traj.camera_to_world.translation.cpu())}
+    graph = graph_to(pg, ring_graph(torch, pg, PG_POSES)[0], DEVICE)
+    nodes = pg.optimize(graph, iterations=PG_ITERATIONS, solver="cg", cg_iters=PG_CG_ITERS)
+    ref["pose_graph"] = (nodes.rotation.cpu(), nodes.translation.cpu())
+    dnodes = pg.optimize(graph_to(pg, ring_graph(torch, pg, 9)[0], DEVICE), iterations=PG_ITERATIONS, solver="dense")
+    ref["pose_graph_dense"] = (dnodes.rotation.cpu(), dnodes.translation.cpu())
+    problem = problem_to(ba_large(torch, ba, *BA_SIZE), DEVICE)
+    bp, bl = ba.optimize(problem, iterations=BA_ITERATIONS, solver="coo", cg_iters=BA_CG_ITERS)
+    ref["bundle_adjustment"] = (bp.rotation.cpu(), bp.translation.cpu(), bl.cpu())
+    sp, sl = ba.optimize(problem_to(ba_scene(torch, ba)[0], DEVICE), iterations=8, solver="dense")
+    ref["bundle_adjustment_dense"] = (sp.rotation.cpu(), sp.translation.cpu(), sl.cpu())
+    del traj, graph, nodes, problem
+
+    def held(world_out: dict, label: str) -> dict:
+        """Each path's gap to the unsharded reference; failures appended."""
+        gaps = {}
+        for name in ("step", "sequence"):
+            same = bitwise_pair(torch, world_out[name]["poses"], ref["step"])
+            gaps[name] = {"bitwise": same, "max_abs": pose_gap_pair(torch, world_out[name]["poses"], ref["step"])}
+            if not same:
+                failures.append(f"9{'a' if name == 'step' else 'b'} ({label}): {name} is not bitwise the unsharded "
+                                f"step ({gaps[name]['max_abs']})")
+        for name in ("pose_graph", "pose_graph_dense"):
+            gaps[name] = pose_gap_pair(torch, world_out[name]["poses"], ref[name])
+        for name in ("bundle_adjustment", "bundle_adjustment_dense"):
+            got = world_out[name]
+            gaps[name] = max(pose_gap_pair(torch, got["poses"], ref[name][:2]),
+                             float((got["landmarks"] - ref[name][2]).abs().max()))
+        for name in ("pose_graph", "pose_graph_dense", "bundle_adjustment", "bundle_adjustment_dense"):
+            if not gaps[name] <= DIST_SOLVE_ATOL:
+                failures.append(f"9{'c' if 'pose' in name else 'd'} ({label}): {name} is {gaps[name]} from unsharded")
+        return gaps
+
+    def summary(world_out: dict) -> dict:
+        """What a rank measured, without its tensors."""
+        out = {}
+        for k, v in world_out.items():
+            if isinstance(v, dict):
+                out[k] = {kk: vv for kk, vv in v.items() if kk not in ("poses", "landmarks")}
+            else:
+                out[k] = v
+        return out
+
+    # -- world 1: NCCL, in this process ----------------------------------------
+    mesh = make_mesh(devices=DEVICE)
+    w1 = distribution_paths(torch, mesh, counters, torch.device(DEVICE))
+    out = {"world1": {"backend": w1["backend"], "gaps": held(w1, "world 1"), **summary(w1)}}
+    for name in ("step", "sequence"):
+        if w1[name]["launches"] != w1["launches_expected_unsharded"]:
+            failures.append(f"9{'a' if name == 'step' else 'b'} (world 1): launches {w1[name]['launches']}, "
+                            f"expected {w1['launches_expected_unsharded']}")
+    # PCG at world 1: launches and device time a trip (against phase 8c's),
+    # and no host sync in a trip (one PCG call under sync debug "error").
+    graph = graph_to(pg, ring_graph(torch, pg, PG_POSES)[0], DEVICE)
+
+    def pg_run(cg_iters):
+        return pg.optimize(graph, iterations=PG_ITERATIONS, solver="cg", mesh=mesh,
+                           cg_iters=PG_CG_ITERS if cg_iters is None else cg_iters)
+
+    full, zero = device_profile(torch, lambda: pg_run(None)), device_profile(torch, lambda: pg_run(0))
+    trips = PG_ITERATIONS * PG_CG_ITERS
+    out["world1"]["pose_graph"]["per_pcg_trip"] = {
+        "device_activities": (full["device_activities"] - zero["device_activities"]) / trips,
+        "device_activities_unsharded_8c": trip_activities_8c,
+        "device_busy_ms": (full["device_busy_ms"] - zero["device_busy_ms"]) / trips}
+    hdiag, hij, g = pg._block_system(graph.nodes, graph.edges, graph.measurements, graph.weights, PG_POSES)
+    hdiag, g = col.all_reduce(mesh, hdiag, g)
+    matvec, precond = pg._cg_operators(pg._finalize_diag(hdiag, 1e-6), hij, graph.edges, mesh)
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pcg(matvec, precond, g, PG_CG_ITERS)
+    except RuntimeError as exc:
+        sync_error = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["world1"]["pose_graph"]["pcg_sync_error"] = sync_error
+    if sync_error is not None:
+        failures.append(f"9c (world 1): a sharded PCG trip synchronised with the host: {sync_error}")
+    for name, want in (("pose_graph", 1), ("bundle_adjustment", 2)):
+        if w1[name]["collectives_per_pcg_trip"] != want:
+            failures.append(f"9{'c' if 'pose' in name else 'd'}: {w1[name]['collectives_per_pcg_trip']} "
+                            f"collectives a PCG trip, expected {want}")
+    del graph, hdiag, hij, g
+
+    # 9e: refine_with_loop_closures(mesh=) on 8a's palindrome.
+    ds = SubsetDataset(dataset, PALINDROME)
+    cheap = MsIcpParams.default().customize(lambda _, p: p.replace(max_iterations=CHEAP_ITERATIONS))
+    kwargs = {"min_separation": len(PALINDROME) - 2, "max_translation": 0.5, "max_candidates": 4,
+              "closure_weight": 20.0}
+    raw = run_odometry(ds, DEVICE, icp_params=cheap)
+    plain = refine_with_loop_closures(ds, raw, DEVICE, **kwargs).trajectory.camera_to_world
+    reset_counts(counters)
+    sharded = refine_with_loop_closures(ds, raw, DEVICE, mesh=mesh, **kwargs).trajectory.camera_to_world
+    gap = max_pose_gap(torch, plain, sharded)
+    out["world1"]["refine_with_loop_closures"] = {"max_abs_vs_no_mesh": gap,
+                                                  "bitwise": bitwise_pair(torch, (plain.rotation, plain.translation),
+                                                                          (sharded.rotation, sharded.translation)),
+                                                  "launches": read_counts(counters)}
+    if not gap <= CLI_DIRECT_ATOL:
+        failures.append(f"9e: refine_with_loop_closures(mesh=) is {gap} from the call without a mesh")
+    torch.distributed.destroy_process_group()
+
+    # -- world 2: two processes on this card, over gloo -------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        t2 = time.perf_counter()
+        spawn_ranks(distribution_rank, 2, workdir, workdir, DEVICE)
+        wall2 = time.perf_counter() - t2
+        ranks = [torch.load(Path(workdir) / f"rank{r}.pt") for r in range(2)]
+    out["world2"] = {"backend": ranks[0]["backend"], "ranks_on": "one card, explicitly over gloo",
+                     "wall_s_including_process_start": wall2, "gaps": held(ranks[0], "world 2"),
+                     "ranks": [summary(r) for r in ranks]}
+    for r in ranks[1:]:
+        for name in ("step", "sequence", "pose_graph", "pose_graph_dense"):
+            if not bitwise_pair(torch, r[name]["poses"], ranks[0][name]["poses"]):
+                failures.append(f"9 (world 2): rank {r['rank']}'s {name} differs from rank 0's")
+    for r in ranks:  # K1 once a GN iteration over the rank's pairs; K2/K3 once a bucket of its frames
+        for name in ("step", "sequence"):
+            got = r[name]["launches"]
+            if (got["icp"] != STEP_ITERATIONS or min(got["splat"], got["slice"]) < 1
+                    or got["slice_a"] or got["normalize"]):
+                failures.append(f"9 (world 2): rank {r['rank']}'s {name} launched {got}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out, failures
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -1835,13 +2158,27 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     done("phase 8")
+
+    # -- 9. distribution ---------------------------------------------------------
+    distributed, failures = distribution(torch, dataset, counters,
+                                         refinement["pose_graph"]["per_pcg_trip"]["device_activities"])
+    print("distribution: " + json.dumps(distributed))
+    if failures:
+        return fail("; ".join(failures))
+    done("phase 9")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
                "throughput, bilateral on (4d)": throughput["bilateral_on"]["launches"],
                "mixed series (4d)": throughput["mixed"]["launches"],
                "loop closure, 18-frame palindrome, no filter (8a)": refinement["palindrome"]["launches"],
-               "loop closure, command line, TUM palindrome (8b)": refinement["cli"]["launches"]}
+               "loop closure, command line, TUM palindrome (8b)": refinement["cli"]["launches"],
+               "sharded step, filter on, world 1 (9a)": distributed["world1"]["step"]["launches"],
+               "sequence parallel, filter on, world 1 (9b)": distributed["world1"]["sequence"]["launches"],
+               **{f"sharded step, filter on, world 2, rank {r['rank']} (9a)": r["step"]["launches"]
+                  for r in distributed["world2"]["ranks"]},
+               **{f"sequence parallel, filter on, world 2, rank {r['rank']} (9b)": r["sequence"]["launches"]
+                  for r in distributed["world2"]["ranks"]}}
 
     def entry(name, source, replaces, key, checked, err_kind, **extra):
         err, (ms, call_ms), (plain_ms, plain_call_ms), bnd, lib = checked

@@ -1,8 +1,9 @@
 """The port's loop-closure refinement (``align3d_torch.odometry.
 refine_with_loop_closures``) against ``align3d_tpu.odometry.
 refine_with_loop_closures`` on a short sample1 palindrome; the JAX e2e test
-(``tests/test_loop_closure_e2e.py``) on the port; the sharded forms, which
-are not ported yet; and the command line's ``--loop-closure``."""
+(``tests/test_loop_closure_e2e.py``) on the port; the ``mesh=`` forms on a
+one-rank mesh (``tests/test_torch_distributed.py`` holds them at 2 and 4
+ranks); and the command line's ``--loop-closure``."""
 
 import math
 from pathlib import Path
@@ -121,22 +122,42 @@ def _tiny_problem():
                         obs_z=lm[:, 2].repeat(2))
 
 
+def _refine_palindrome(mesh):
+    """The palindrome's ground truth, nudged, as the odometry: one closure
+    (0, 4) measured and the pose graph solved."""
+    ds = SubsetDataset(SlamTbDataset.load(str(SAMPLE1)), PALINDROME)
+    gt = ds.trajectory().camera_to_world
+    nudged = Trajectory(gt @ Transform.exp(torch.full((len(PALINDROME), 6), 1e-3)), torch.arange(5.0))
+    raw = OdometryResult(trajectory=nudged, metrics=None, seconds_per_frame=0.0)
+    return refine_with_loop_closures(ds, raw, "cpu", icp_params=cheap(MsIcpParams), mesh=mesh, **KWARGS).trajectory
+
+
 CALLS = {
     "pose_graph.optimize": lambda mesh: pg.optimize(_tiny_graph()[0], mesh=mesh),
     "pose_graph.refine_trajectory": lambda mesh: pg.refine_trajectory(_tiny_graph()[1], mesh=mesh),
     "bundle_adjustment.optimize": lambda mesh: ba.optimize(_tiny_problem(), mesh=mesh),
-    "refine_with_loop_closures": lambda mesh: refine_with_loop_closures(None, None, "cpu", mesh=mesh),
+    "refine_with_loop_closures": _refine_palindrome,
 }
 
 
 @pytest.mark.parametrize("name", sorted(CALLS))
 def test_mesh_is_not_ported_and_says_so(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        CALLS[name](object())
-    if name != "refine_with_loop_closures":
-        out = CALLS[name](None)  # without a mesh the same call runs
-        poses = out.camera_to_world if isinstance(out, Trajectory) else out[0] if isinstance(out, tuple) else out
-        assert torch.isfinite(poses.rotation).all() and torch.isfinite(poses.translation).all()
+    """``mesh=`` raised NotImplementedError until the sharded forms were
+    ported; now each call runs on a one-rank CPU mesh and gives the poses
+    of the same call without a mesh (within 1e-6: one rank's sums are the
+    unsharded sums)."""
+    from align3d_torch.parallel.batch import make_mesh
+
+    mesh = make_mesh(devices="cpu")
+    try:
+        outs = [CALLS[name](m) for m in (mesh, None)]
+    finally:
+        torch.distributed.destroy_process_group()
+    got, ref = (out.camera_to_world if isinstance(out, Trajectory) else out[0] if isinstance(out, tuple) else out
+                for out in outs)
+    assert torch.isfinite(got.rotation).all() and torch.isfinite(got.translation).all()
+    torch.testing.assert_close(got.rotation, ref.rotation, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got.translation, ref.translation, atol=1e-6, rtol=0)
 
 
 def test_cli_loop_closure_on_cpu(tmp_path, capsys):

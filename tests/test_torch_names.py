@@ -25,16 +25,13 @@ UNPORTED_NAMES = {
 }
 PYTREE = {"tree_flatten", "tree_unflatten"}
 
-# ROADMAP Queue 1, items 4-6: distribution, viz and the viewer, profiling.
+# ROADMAP Queue 1, item 5: viz and the viewer.
 TO_COME_MODULES = {
-    "parallel/sequence.py", "parallel/multihost.py",  # item 4
     "viz/__init__.py", "viz/dataset_viewer.py", "viz/datatypes.py", "viz/interactive.py", "viz/manager.py",
-    "viz/render.py", "viz/scene.py", "viz/sphere.py", "viz/viewers.py", "viz/virtual_camera.py",  # item 5
-    "utils/__init__.py", "utils/profiling.py",  # item 6
+    "viz/render.py", "viz/scene.py", "viz/sphere.py", "viz/viewers.py", "viz/virtual_camera.py",
 }
 TO_COME_NAMES = {
-    "parallel/batch.py": {"make_mesh"},  # item 4
-    "cli.py": {"cmd_viewer"},  # item 5
+    "cli.py": {"cmd_viewer"},
 }
 
 # Counterparts that live in another module of the port.
