@@ -1,11 +1,13 @@
-"""Command line of the port (``align3d-torch``), the ``odometry`` subcommand
-of ``align3d_tpu/cli.py``.
+"""Command line of the port (``align3d-torch``), the subcommands of
+``align3d_tpu/cli.py``:
 
     python -m align3d_torch.cli odometry {slamtb,tum,ilrgbd} <dataset> [max_frames]
-        [--checkpoint PATH [--checkpoint-every N]] [--loop-closure]
+        [--checkpoint PATH [--checkpoint-every N]] [--loop-closure] [--show PATH]
+    python -m align3d_torch.cli viewer {slamtb,tum,ilrgbd} <dataset> [-o PATH]
+        [--max-frames N] [--animate | --interactive [--port P]]
 
-It runs on the GPU (``--device cuda``, the default, which fails when CUDA is
-absent); ``--device cpu`` selects the plain-PyTorch path. Frames decode
+Both run on the GPU (``--device cuda``, the default, which fails when CUDA
+is absent); ``--device cpu`` selects the plain-PyTorch path. Frames decode
 ahead of the aligner in the native loader's worker pool where that library
 builds (:func:`align3d_torch.io.datasets.core.maybe_prefetch`).
 """
@@ -27,9 +29,14 @@ def _progress_printer(total_width: int = 40):
     return show
 
 
-def cmd_odometry(args) -> int:
+def _check_device(device: str) -> None:
     import torch
 
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: CUDA is not available (pass --device cpu for the CPU path)")
+
+
+def cmd_odometry(args) -> int:
     from align3d_torch.icp.params import MsIcpParams
     from align3d_torch.io.datasets import SubsetDataset, load_dataset
     from align3d_torch.io.datasets.core import PrefetchingDataset, maybe_prefetch
@@ -37,9 +44,7 @@ def cmd_odometry(args) -> int:
     from align3d_torch.ops.bilateral import BilateralFilter
     from align3d_torch.range_image import RangeImageBuilder
 
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: CUDA is not available (pass --device cpu for the CPU path)")
-
+    _check_device(args.device)
     loaded = maybe_prefetch(load_dataset(args.format, args.dataset))
     dataset = loaded
     if args.max_frames is not None:
@@ -70,6 +75,43 @@ def cmd_odometry(args) -> int:
         with open(args.save_trajectory, "w") as f:
             f.write(result.trajectory.to_tum())
         print(f"Trajectory written to {args.save_trajectory} (TUM format)")
+    if args.show is not None:
+        # Reference --show hands off to the dataset viewer
+        # (examples/src/bin/odometry.rs:15-28 + rgbd_dataset_viewer.rs); the
+        # headless analog renders the clouds posed by the ESTIMATED
+        # trajectory: a GIF fly-through for .gif outputs, else a PNG.
+        from align3d_torch.viz.dataset_viewer import render_dataset_flythrough, render_dataset_preview
+
+        render = render_dataset_flythrough if args.show.lower().endswith(".gif") else render_dataset_preview
+        out = render(args.format, args.dataset, args.show, max_frames=args.max_frames, trajectory=result.trajectory,
+                     device=args.device)
+        print(f"Wrote {out}")
+    return 0
+
+
+def cmd_viewer(args) -> int:
+    from align3d_torch.viz.dataset_viewer import render_dataset_flythrough, render_dataset_preview
+
+    _check_device(args.device)
+    if args.interactive:
+        from align3d_torch.io.datasets import load_dataset
+        from align3d_torch.viz.viewers import RgbdDatasetViewer
+
+        dataset = load_dataset(args.format, args.dataset)
+        # Unless explicitly capped, keep the interactive scene at show()'s
+        # own default (8 frames): a full TUM sequence would otherwise load
+        # thousands of frames before serving.
+        max_frames = args.max_frames if args.max_frames is not None else 8
+        RgbdDatasetViewer(dataset, device=args.device).show(max_frames=max_frames, port=args.port)
+        return 0
+    if args.animate or args.output.lower().endswith(".gif"):
+        output = args.output if args.output.lower().endswith(".gif") else args.output + ".gif"
+        out = render_dataset_flythrough(args.format, args.dataset, output, max_frames=args.max_frames,
+                                        device=args.device)
+    else:
+        out = render_dataset_preview(args.format, args.dataset, args.output, max_frames=args.max_frames,
+                                     device=args.device)
+    print(f"Wrote {out}")
     return 0
 
 
@@ -119,7 +161,35 @@ def build_parser() -> argparse.ArgumentParser:
         "if the file exists (an aborted run continues where it stopped)",
     )
     p_odo.add_argument("--checkpoint-every", type=_positive_int, default=10)
+    p_odo.add_argument(
+        "--show",
+        metavar="PATH",
+        default=None,
+        help="after odometry, render the reconstruction posed by the "
+        "estimated trajectory (reference odometry --show): animated GIF "
+        "fly-through if PATH ends in .gif, else a single PNG",
+    )
     p_odo.set_defaults(fn=cmd_odometry)
+
+    p_view = sub.add_parser("viewer", help="render dataset + trajectory preview PNG")
+    p_view.add_argument("format")
+    p_view.add_argument("dataset")
+    p_view.add_argument("--output", "-o", default="dataset_preview.png")
+    p_view.add_argument("--max-frames", type=int, default=None)
+    p_view.add_argument(
+        "--animate",
+        action="store_true",
+        help="render an orbiting GIF fly-through instead of a single PNG",
+    )
+    p_view.add_argument(
+        "--interactive",
+        action="store_true",
+        help="serve an interactive viewer (WASD fly, mouse orbit, 1..9 "
+        "visibility toggles, Q quit) at http://127.0.0.1:PORT/",
+    )
+    p_view.add_argument("--port", type=int, default=8700)
+    p_view.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p_view.set_defaults(fn=cmd_viewer)
     return parser
 
 

@@ -1,8 +1,11 @@
-"""A PNG decoder on ``zlib`` and numpy, for the frames the datasets hold.
+"""A PNG decoder and encoder on ``zlib``, ``struct`` and numpy, for the
+frames the datasets hold and the images the renderer writes.
 
-Supports non-interlaced 8-bit RGB (colour type 2) and 16-bit grayscale
-(colour type 0) with filter types 0-4 — the formats of RGB-D colour and
-depth frames. Anything else raises :class:`PngError`.
+The decoder supports non-interlaced 8-bit RGB (colour type 2), 8-bit RGBA
+(colour type 6) and 16-bit grayscale (colour type 0) with filter types 0-4
+— the formats of RGB-D colour and depth frames and of :func:`encode`'s
+output. Anything else raises :class:`PngError`. :func:`encode` writes 8-bit
+RGBA, every row with filter type 0.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # (bit depth, colour type) -> (channels, numpy dtype of a sample)
-_FORMATS = {(8, 2): (3, np.uint8), (16, 0): (1, np.dtype(">u2"))}
+_FORMATS = {(8, 2): (3, np.uint8), (8, 6): (4, np.uint8), (16, 0): (1, np.dtype(">u2"))}
 
 
 class PngError(ValueError):
@@ -75,7 +78,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 or (H, W) uint16."""
+    """PNG bytes -> (H, W, 3) or (H, W, 4) uint8, or (H, W) uint16."""
     if data[:8] != _SIGNATURE:
         raise PngError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -107,3 +110,25 @@ def decode(data: bytes) -> np.ndarray:
 def read(path) -> np.ndarray:
     with open(path, "rb") as f:
         return decode(f.read())
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode(rgba: np.ndarray) -> bytes:
+    """(H, W, 4) uint8 -> PNG bytes (8-bit RGBA, non-interlaced)."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    if rgba.ndim != 3 or rgba.shape[2] != 4:
+        raise PngError(f"expected (H, W, 4) uint8, got shape {rgba.shape}")
+    height, width = rgba.shape[:2]
+    rows = np.zeros((height, width * 4 + 1), np.uint8)  # filter byte 0, then the row
+    rows[:, 1:] = rgba.reshape(height, width * 4)
+    header = struct.pack(">IIBBBBB", width, height, 8, 6, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def write(path, rgba: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode(rgba))

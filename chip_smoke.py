@@ -129,6 +129,28 @@ Run from the root of a checkout. Phases, each of which fails the run:
       against the call without a mesh.
    A rank that fails, or runs past ``DIST_TIMEOUT_S``, fails the run. The
    two-rank times are host cost on one card, not scaling.
+10. Viz, each render on the card and on the CPU path in this process (the
+    card's rerun bitwise, host ms a render, device busy ms, peak memory, the
+    share of pixels of equal colour), all printed as one ``viz:`` JSON line:
+    a. ``render_dataset_preview`` of all 31 sample1 frames at 640x480
+       (8,375,903 points with the polyline; its PNG equal to the direct
+       render), on the card only, and the 8-frame ``RgbdDatasetViewer``
+       scene on both (the CPU comparison is cut to those 8 frames to keep
+       the phase near a minute); the renderer alone bitwise: the CPU path's
+       8 clouds uploaded and rendered on the card;
+    b. ``render_dataset_flythrough`` at 480x360, 24 views: host s and GIF
+       bytes; the GIF decoded by this script's LZW reader, each frame the
+       palette's quantization of the card's render of that view;
+    c. mesh renders with ``normals=None`` through a scene's mesh node (the
+       teapot, the 204,800- and 3,276,800-face grids scaled to 4 x 4 units,
+       640x480): exactly one K5 launch a render, the (face, pixel) pairs
+       enumerated;
+    d. the command line: ``viewer -o p.png --max-frames 8`` (equal to the
+       direct render), ``viewer --animate``, and ``odometry slamtb sample1 10
+       --show s.png`` with K1/K2/K3 launched as in 4a and K5 never;
+    e. ``InteractiveViewer`` on the 8-frame scene driven over HTTP (page,
+       frame, W, a drag, key 1, state, quit), each frame equal to a direct
+       render of its camera; ms a ``/frame.png`` request.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -189,6 +211,9 @@ BA_CARD_CPU_ATOL = 1e-4  # 8d: 32 float32 PCG trips, card vs CPU
 BA_DENSE_CARD_CPU_ATOL = 1e-4  # 8d: the dense Schur solve, card vs CPU
 DIST_SOLVE_ATOL = 1e-4  # 9c/9d vs unsharded: tests/test_pose_graph.py:86-103, test_bundle_adjustment.py:147-155
 DIST_TIMEOUT_S = 300  # 9: a rank still running after this fails the run
+VIZ_SCENE_FRAMES = 8  # 10: the interactive scene and the command line's preview
+VIZ_VIEWS = 24  # 10b: views of the fly-through
+VIZ_CARD_CPU_SHARE = 0.999  # 10a/10c: pixels of equal colour, card against the CPU path
 
 # Published H100 SXM peaks at 700 W (the bounds are stated against them).
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -1947,6 +1972,377 @@ def distribution(torch, dataset, counters, trip_activities_8c=None) -> tuple[dic
     return out, failures
 
 
+# -- phase 10: viz ----------------------------------------------------------------
+
+def lzw_decode(data: bytes, min_size: int, n: int) -> bytes:
+    """GIF's variable-width LZW (any form, not only the literal one the
+    port writes): ``n`` palette indices."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    size, acc, nbits, prev = min_size + 1, 0, 0, None
+    table: list = []
+    out = bytearray()
+    for byte in data:
+        acc |= byte << nbits
+        nbits += 8
+        while nbits >= size:
+            code = acc & ((1 << size) - 1)
+            acc >>= size
+            nbits -= size
+            if code == clear:
+                table = [bytes([i]) for i in range(clear)] + [b"", b""]
+                size, prev = min_size + 1, None
+                continue
+            if code == end:
+                return bytes(out[:n])
+            if prev is None:
+                entry = table[code]
+            else:
+                entry = table[code] if code < len(table) else prev + prev[:1]
+                if code > len(table):
+                    raise ValueError(f"LZW code {code} beyond the table ({len(table)})")
+                table.append(prev + entry[:1])
+            out += entry
+            prev = entry
+            if len(table) == (1 << size) and size < 12:
+                size += 1
+    raise ValueError("LZW stream without an end code")
+
+
+def gif_frames(data: bytes) -> list:
+    """The frames of a GIF (full-size images on its global palette) as
+    (H, W, 3) uint8 arrays."""
+    import struct
+
+    import numpy as np
+
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF")
+    packed = data[10]
+    pos, palette = 13, None
+    if packed & 0x80:
+        size = 3 * (2 << (packed & 7))
+        palette = np.frombuffer(data[pos:pos + size], np.uint8).reshape(-1, 3)
+        pos += size
+    frames = []
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:  # extension: label, then sub-blocks
+            pos += 2
+            while data[pos]:
+                pos += data[pos] + 1
+            pos += 1
+        elif kind == 0x2C:
+            _, _, w, h, flags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            if flags & 0x80 or palette is None:
+                raise ValueError("a local colour table is not read here")
+            min_size, pos = data[pos + 10], pos + 11
+            chunks = []
+            while data[pos]:
+                chunks.append(data[pos + 1:pos + 1 + data[pos]])
+                pos += data[pos] + 1
+            pos += 1
+            index = np.frombuffer(lzw_decode(b"".join(chunks), min_size, w * h), np.uint8)
+            frames.append(palette[index].reshape(h, w, 3))
+        else:
+            raise ValueError(f"unexpected GIF block 0x{kind:02x}")
+    return frames
+
+
+def fitted_camera(viewer, azimuth: float = 0.0, elevation: float = 0.0):
+    """``GeoViewer.render_frame``'s camera."""
+    from align3d_torch.viz.virtual_camera import VirtualCameraSphericalBuilder
+
+    builder = VirtualCameraSphericalBuilder.fit(viewer.scene.bounding_sphere(), math.pi / 2.0)
+    builder.azimuth, builder.elevation = azimuth, elevation
+    builder.aspect_ratio = viewer.renderer.width / viewer.renderer.height
+    return builder.build()
+
+
+def same_render(torch, a, b) -> bool:
+    return torch.equal(a.color.cpu(), b.color.cpu()) and torch.equal(
+        a.depth.cpu().view(torch.int32), b.depth.cpu().view(torch.int32))
+
+
+def card_against_cpu(torch, card_img, cpu_img) -> dict:
+    cc, kc = card_img.color.cpu(), cpu_img.color
+    dc, dk = card_img.depth.cpu(), cpu_img.depth
+    both = torch.isfinite(dc) & torch.isfinite(dk)
+    return {"color_equal_share": float((cc == kc).all(dim=-1).double().mean()),
+            "max_abs_depth_diff": float((dc[both] - dk[both]).abs().max()) if bool(both.any()) else 0.0,
+            "coverage_equal": torch.equal(torch.isfinite(dc), torch.isfinite(dk)),
+            "covered_pixels": int(torch.isfinite(dc).sum()), "bitwise": same_render(torch, card_img, cpu_img)}
+
+
+def render_on_both(torch, viewers: dict, render, cpu_runs: int = 3) -> dict:
+    """``render(viewer)`` on the card and, where ``viewers`` has one, on the
+    CPU: the card's rerun bitwise, host ms a render (median, ended by a
+    synchronise) on each, the card's device busy ms (one profile) and peak
+    memory, and the two renders against each other."""
+    card = viewers[DEVICE]
+    first = render(card)
+    rerun = render(card)
+    card_ms, _ = host_ms(torch, lambda: render(card))
+    torch.cuda.reset_peak_memory_stats()
+    render(card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(torch, lambda: render(card))
+    out = {"card_rerun_bitwise": same_render(torch, first, rerun), "host_ms": card_ms, **prof,
+           "peak_memory_bytes": peak, "_image": first}
+    if "cpu" in viewers:
+        cpu_ms, cpu_img = host_ms(torch, lambda: render(viewers["cpu"]), runs=cpu_runs)
+        out.update(cpu_host_ms=cpu_ms, cpu_runs=cpu_runs, card_vs_cpu=card_against_cpu(torch, first, cpu_img))
+    return out
+
+
+def scene_points(viewer) -> int:
+    return sum(int(n.points.shape[0]) for n in viewer.scene.nodes if n.visible)
+
+
+def viz_dataset(torch, failures: list) -> dict:
+    """10a and 10b."""
+    import tempfile
+
+    from align3d_torch.io import gif, png
+    from align3d_torch.io.datasets import SlamTbDataset
+    from align3d_torch.viz import dataset_viewer
+    from align3d_torch.viz.viewers import GeoViewer, RgbdDatasetViewer
+
+    out = {}
+    t0 = time.perf_counter()
+    preview = dataset_viewer.posed_viewer("slamtb", str(SAMPLE1), None, 640, 480, None, DEVICE).viewer
+    torch.cuda.synchronize()
+    out["preview_build_s"] = time.perf_counter() - t0
+    # The CPU path renders the 8-frame scene only: all 31 frames on the CPU
+    # would take phase 10 past a minute.
+    scene = {}
+    for d in (DEVICE, "cpu"):
+        rgbd = RgbdDatasetViewer(SlamTbDataset.load(str(SAMPLE1)), 640, 480, device=d)
+        rgbd.build_scene(max_frames=VIZ_SCENE_FRAMES)
+        scene[d] = rgbd.viewer
+    # The renderer alone: the CPU path's clouds uploaded to the card. (The
+    # card's own clouds differ from the CPU's in the last bit where the
+    # backprojection divides: CUDA divides by a scalar through its
+    # reciprocal.)
+    same = GeoViewer(640, 480, device=DEVICE)
+    for node in scene["cpu"].scene.nodes:
+        same.add(node.points.to(DEVICE), colors=node.colors.to(DEVICE), transform=node.transform)
+    out["scene_8_frames_same_points_bitwise"] = same_render(torch, same.render_frame(), scene["cpu"].render_frame())
+    card_pts = torch.cat([n.points.cpu() for n in scene[DEVICE].scene.nodes])
+    cpu_pts = torch.cat([n.points for n in scene["cpu"].scene.nodes])
+    out["scene_8_frames_clouds"] = {
+        "points": int(cpu_pts.shape[0]), "coordinates_differing": int((card_pts != cpu_pts).sum()),
+        "max_ulps": int((card_pts.view(torch.int32).long() - cpu_pts.view(torch.int32).long()).abs().max())}
+    if not out["scene_8_frames_same_points_bitwise"]:
+        failures.append("10a: the card's render of the CPU path's clouds differs from the CPU path's")
+    for name, viewers in (("preview_sample1", {DEVICE: preview}), ("scene_8_frames", scene)):
+        got = render_on_both(torch, viewers, lambda v: v.render_frame())
+        got["points"], got["nodes"] = scene_points(viewers[DEVICE]), len(viewers[DEVICE].scene.nodes)
+        img = got.pop("_image")
+        out[name] = got
+        if not got["card_rerun_bitwise"]:
+            failures.append(f"10a: {name}: a rerun on the card differs")
+        if "card_vs_cpu" in got and got["card_vs_cpu"]["color_equal_share"] < VIZ_CARD_CPU_SHARE:
+            failures.append(f"10a: {name}: card against CPU {got['card_vs_cpu']}")
+        if name == "preview_sample1":
+            with tempfile.TemporaryDirectory() as tmp:
+                path = Path(tmp) / "preview.png"
+                dataset_viewer.render_dataset_preview("slamtb", str(SAMPLE1), str(path), device=DEVICE)
+                out["render_dataset_preview_equal_direct"] = bool(
+                    (png.read(path) == img.color.cpu().numpy()).all())
+            if not out["render_dataset_preview_equal_direct"]:
+                failures.append("10a: render_dataset_preview's PNG differs from the direct render")
+    del scene, same
+
+    # 10b: the fly-through, 480x360, 24 views.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "fly.gif"
+        t0 = time.perf_counter()
+        dataset_viewer.render_dataset_flythrough("slamtb", str(SAMPLE1), str(path), n_views=VIZ_VIEWS, device=DEVICE)
+        wall = time.perf_counter() - t0
+        data = path.read_bytes()
+    t0 = time.perf_counter()
+    frames = gif_frames(data)
+    decode_s = time.perf_counter() - t0
+    direct = GeoViewer(480, 360, device=DEVICE)  # the preview's scene at the fly-through's size
+    direct.scene = preview.scene
+    worst, exact = [0, 0, 0], True
+    for frame, (az, el) in zip(frames, dataset_viewer.flythrough_views(VIZ_VIEWS)):
+        want = direct.render_frame(azimuth=az, elevation=el).color[..., :3].cpu().numpy()
+        err = abs(frame.astype("int32") - want.astype("int32")).max(axis=(0, 1))
+        worst = [max(w, int(e)) for w, e in zip(worst, err)]
+        exact &= bool((frame == gif.PALETTE[gif.quantize(want)]).all())
+    del preview, direct
+    out["flythrough"] = {"host_s": wall, "gif_bytes": len(data), "frames": len(frames), "size": [480, 360],
+                         "lzw_reader_s": decode_s, "max_abs_err_rgb": worst, "palette_bound_rgb": list(gif.BOUND),
+                         "decoded_equal_quantized_render": exact}
+    if len(frames) != VIZ_VIEWS or any(w > b for w, b in zip(worst, gif.BOUND)) or not exact:
+        failures.append(f"10b: the GIF's frames against the card's renders: {out['flythrough']}")
+    return out
+
+
+def viz_meshes(torch, failures: list) -> dict:
+    """10c: meshes with ``normals=None`` through a Scene's mesh node."""
+    from align3d_torch.io import read_ply
+    from align3d_torch.ops import mesh
+    from align3d_torch.tools.ablate import grid_mesh
+    from align3d_torch.viz import render
+    from align3d_torch.viz.viewers import GeoViewer
+
+    def grid(side):
+        # The grid spans side x side units; the fitted camera's far plane is
+        # the reference's 100 units, so scale it to 4 x 4 (heights +-1).
+        pts, faces = grid_mesh(side)
+        pts[:, :2] *= 4.0 / side
+        return pts, faces
+
+    teapot = read_ply(ROOT / "tests" / "data" / "teapot.ply")
+    out = {}
+    for name, (pts, faces) in (("teapot", (teapot.points, teapot.faces)), ("grid320", grid(320)),
+                               ("grid1280", grid(1280))):
+        viewers = {}
+        for d in (DEVICE, "cpu"):
+            viewers[d] = GeoViewer(640, 480, device=d)
+            viewers[d].add(pts, faces=faces)
+        camera = fitted_camera(viewers[DEVICE], 0.3, 0.4)
+
+        def draw(v):
+            return v.scene.render(v.renderer, camera)
+
+        mesh.LAUNCHES = 0
+        draw(viewers[DEVICE])
+        draw(viewers[DEVICE])
+        torch.cuda.synchronize()
+        two = mesh.LAUNCHES
+        got = render_on_both(torch, viewers, draw, cpu_runs=1 if len(faces) > 1_000_000 else 3)
+        got.pop("_image")
+        world = viewers[DEVICE].scene.nodes[0].world_points()
+        x, y, z, ok = render._project(camera, world, 640, 480)
+        got["pairs"] = int(render._FaceRaster(x, y, z, ok, viewers[DEVICE].scene.nodes[0].faces, 640, 480)
+                           .counts.sum())
+        got["faces"], got["k5_launches_two_renders"] = int(len(faces)), two
+        out[name] = got
+        if two != 2:
+            failures.append(f"10c: {name}: K5 launched {two} times in two renders of one mesh node")
+        if not got["card_rerun_bitwise"] or got["card_vs_cpu"]["color_equal_share"] < VIZ_CARD_CPU_SHARE:
+            failures.append(f"10c: {name}: {got['card_vs_cpu']}, rerun bitwise {got['card_rerun_bitwise']}")
+    return out
+
+
+def viz_cli(torch, counters, failures: list, odometry_launches: dict) -> dict:
+    """10d: the command line's viewer and odometry --show on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from align3d_torch import cli
+    from align3d_torch.io import png
+    from align3d_torch.viz import dataset_viewer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        p = Path(tmp) / "p.png"
+        t0 = time.perf_counter()
+        cli.main(["viewer", "slamtb", str(SAMPLE1), "-o", str(p), "--max-frames", str(VIZ_SCENE_FRAMES),
+                  "--device", DEVICE])
+        out["viewer_png_s"] = time.perf_counter() - t0
+        direct = dataset_viewer.posed_viewer("slamtb", str(SAMPLE1), VIZ_SCENE_FRAMES, 640, 480, None, DEVICE)
+        out["viewer_png_equal_direct"] = bool((png.read(p) == direct.viewer.render_frame().color.cpu().numpy()).all())
+        t0 = time.perf_counter()
+        cli.main(["viewer", "slamtb", str(SAMPLE1), "-o", str(Path(tmp) / "fly"), "--max-frames",
+                  str(VIZ_SCENE_FRAMES), "--animate", "--device", DEVICE])
+        out["viewer_animate_s"] = time.perf_counter() - t0
+        out["viewer_animate_frames"] = len(gif_frames((Path(tmp) / "fly.gif").read_bytes()))
+        s = Path(tmp) / "s.png"
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        cli.main(["odometry", "slamtb", str(SAMPLE1), str(FRAMES), "--show", str(s), "--device", DEVICE, "-q"])
+        out["odometry_show_s"] = time.perf_counter() - t0
+        out["odometry_show_launches"] = read_counts(counters)
+        shown = png.read(s)
+        out["odometry_show_png"] = {"shape": list(shown.shape), "lit_pixels": int((shown[..., :3] > 0).any(-1).sum())}
+    if not out["viewer_png_equal_direct"]:
+        failures.append("10d: viewer -o p.png differs from the direct render")
+    if out["viewer_animate_frames"] != VIZ_VIEWS:
+        failures.append(f"10d: viewer --animate wrote {out['viewer_animate_frames']} frames")
+    want = {**odometry_launches, "slice_a": 0, "normalize": 0, "mesh": 0}
+    if out["odometry_show_launches"] != want:
+        failures.append(f"10d: odometry --show launched {out['odometry_show_launches']}, expected {want}")
+    if out["odometry_show_png"]["shape"] != [480, 640, 4] or out["odometry_show_png"]["lit_pixels"] < 1000:
+        failures.append(f"10d: odometry --show wrote {out['odometry_show_png']}")
+    return out
+
+
+def viz_interactive(torch, failures: list) -> dict:
+    """10e: the interactive viewer driven over HTTP, on the card and on the
+    CPU: each frame served equal to a direct render of the same camera."""
+    import json as _json
+    import urllib.request
+
+    from align3d_torch.io import png
+    from align3d_torch.io.datasets import SlamTbDataset
+    from align3d_torch.viz.interactive import InteractiveViewer
+    from align3d_torch.viz.viewers import RgbdDatasetViewer
+
+    out = {}
+    for d in (DEVICE, "cpu"):
+        rv = RgbdDatasetViewer(SlamTbDataset.load(str(SAMPLE1)), 640, 480, device=d)
+        viewer = InteractiveViewer(rv.build_scene(max_frames=VIZ_SCENE_FRAMES), 640, 480, device=d)
+        port = viewer.start(port=0)
+        base = f"http://127.0.0.1:{port}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.read()
+
+        def post(event):
+            req = urllib.request.Request(base + "/event", data=_json.dumps(event).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.read()
+
+        try:
+            page_ok = b"WASD" in get("/")
+            equal, times = [], []
+            for event in (None, {"type": "key", "key": "w"}, {"type": "drag", "dx": 40, "dy": -12},
+                          {"type": "key", "key": "1"}):
+                if event is not None:
+                    post(event)
+                t0 = time.perf_counter()
+                frame = png.decode(get("/frame.png"))
+                times.append((time.perf_counter() - t0) * 1e3)
+                want = viewer.scene.render(viewer.renderer, viewer.controller.camera).color.cpu().numpy()
+                equal.append(bool((frame == want).all()))
+            state = _json.loads(get("/state"))
+            post({"type": "quit"})
+            quit_ok = viewer.quit_requested.wait(timeout=10)
+        finally:
+            viewer.stop()
+        key = "card" if d == DEVICE else "cpu"
+        out[key] = {"page": page_ok, "frames_equal_direct": equal, "frame_request_ms": times,
+                    "frame_request_ms_median": sorted(times)[len(times) // 2], "visible_after_key_1": state["visible"],
+                    "quit": quit_ok}
+        if not (page_ok and all(equal) and quit_ok and state["visible"][0] is False
+                and all(state["visible"][1:])):
+            failures.append(f"10e ({key}): {out[key]}")
+    return out
+
+
+def viz(torch, counters, odometry_launches: dict) -> tuple[dict, list]:
+    """Phase 10; returns (what it measured, its failures)."""
+    from align3d_torch.ops import mesh
+
+    counters = {**counters, "mesh": (mesh, "LAUNCHES")}
+    out, failures = {"phase_s": {}}, []
+    for name, path in (("dataset", lambda: viz_dataset(torch, failures)),
+                       ("meshes", lambda: viz_meshes(torch, failures)),
+                       ("cli", lambda: viz_cli(torch, counters, failures, odometry_launches)),
+                       ("interactive", lambda: viz_interactive(torch, failures))):
+        t0 = time.perf_counter()
+        out[name] = path()
+        out["phase_s"][name] = time.perf_counter() - t0
+    return out, failures
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -2166,6 +2562,29 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     done("phase 9")
+
+    # -- 10. viz -------------------------------------------------------------------
+    shown, failures = viz(torch, counters, {k: launches[k] for k in ODOMETRY_KERNELS})
+    print("viz: " + json.dumps(shown))
+    for name in ("preview_sample1", "scene_8_frames"):
+        got = shown["dataset"][name]
+        print(f"viz {name}: {got['points']} points in {got['nodes']} nodes, 640x480; card against CPU "
+              f"{json.dumps(got.get('card_vs_cpu', 'not run (8-frame scene only)'))}; card rerun bitwise "
+              f"{got['card_rerun_bitwise']}; host ms a render card {got['host_ms']:.2f}, CPU path "
+              f"{got.get('cpu_host_ms', 'not run')}; device busy ms {got['device_busy_ms']:.3f} "
+              f"({got['device_activities']} activities); peak memory {got['peak_memory_bytes']} B")
+    print(f"viz renderer alone, the CPU path's 8 clouds on the card: bitwise "
+          f"{shown['dataset']['scene_8_frames_same_points_bitwise']}; the clouds built on the card against the CPU's: "
+          f"{json.dumps(shown['dataset']['scene_8_frames_clouds'])}")
+    for name, got in shown["meshes"].items():
+        print(f"viz mesh {name}: {got['faces']} faces, {got['pairs']} (face, pixel) pairs; K5 launches in two renders "
+              f"{got['k5_launches_two_renders']}; card against CPU {json.dumps(got['card_vs_cpu'])}; host ms a render "
+              f"card {got['host_ms']:.2f}, CPU path {got['cpu_host_ms']:.2f}; device busy ms {got['device_busy_ms']:.3f}")
+    print(f"viz interactive: ms a /frame.png request, card {shown['interactive']['card']['frame_request_ms_median']:.1f}, "
+          f"CPU path {shown['interactive']['cpu']['frame_request_ms_median']:.1f}")
+    if failures:
+        return fail("; ".join(failures))
+    done("phase 10")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
@@ -2178,7 +2597,12 @@ def main() -> int:
                **{f"sharded step, filter on, world 2, rank {r['rank']} (9a)": r["step"]["launches"]
                   for r in distributed["world2"]["ranks"]},
                **{f"sequence parallel, filter on, world 2, rank {r['rank']} (9b)": r["sequence"]["launches"]
-                  for r in distributed["world2"]["ranks"]}}
+                  for r in distributed["world2"]["ranks"]},
+               "odometry --show, 10 frames (10d)": shown["cli"]["odometry_show_launches"],
+               "viz": {"mesh": sum(m["k5_launches_two_renders"] for m in shown["meshes"].values())}}
+
+    def paths(key):
+        return {k: v[key] for k, v in by_path.items() if key in v}
 
     def entry(name, source, replaces, key, checked, err_kind, **extra):
         err, (ms, call_ms), (plain_ms, plain_call_ms), bnd, lib = checked
@@ -2202,7 +2626,7 @@ def main() -> int:
     kernels = [
         entry("icp_step_fused (K1)", "align3d_torch/csrc/icp_step.cu", "align3d_tpu/ops/icp_pallas_v4.py:96",
               "icp", icp, "max |kernel - plain| / max|plain| over H, g and sum w r^2", ptxas=ptxas["icp"],
-              launches_by_path={k: v["icp"] for k, v in by_path.items()},
+              launches_by_path=paths("icp"),
               shapes={"batch64_real_pairs": {
                   "ms": k1_64["ms"], "us_per_pair": k1_64["us_per_pair"],
                   "device_us_per_launch_in_step": step_profile["bilateral_off"]["k1_device_us_per_launch"],
@@ -2211,7 +2635,7 @@ def main() -> int:
                   **bound(k1_64["bytes"], 300 * k1_64["gathers"] / 2)}}),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",
               "splat", splat, "max |kernel - plain|", ptxas=ptxas["splat"],
-              launches_by_path={k: v["splat"] for k, v in by_path.items()},
+              launches_by_path=paths("splat"),
               shapes={f"batch{frames}_gd{batched_bil['gd']}": {
                   "ms": batched_bil["splat_ms"], "call_ms": batched_bil["splat_call_ms"],
                   "ms_per_frame": batched_bil["splat_ms_per_frame"],
@@ -2224,7 +2648,7 @@ def main() -> int:
         entry("bilateral_slice (K3)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:389",
               "slice", slice_, "max |kernel - plain| of the int32 output (form (b))", ptxas=ptxas["slice"],
               form="(b): blurred grid in, normalized at each corner, int32 out",
-              launches_by_path={k: v["slice"] for k, v in by_path.items()},
+              launches_by_path=paths("slice"),
               shapes={f"batch{frames}_gd{batched_bil['gd']}": {
                   "ms": batched_bil["fused_ms"], "call_ms": batched_bil["fused_call_ms"],
                   "ms_per_frame": batched_bil["fused_ms"] / frames if batched_bil["fused_ms"] else None,
@@ -2251,7 +2675,7 @@ def main() -> int:
                       "nearest_500k_band512": shape_times(nn_500[512])}),
         entry("mesh_normals (K5)", "align3d_torch/csrc/mesh.cu", "align3d_tpu/ops/mesh.py:243",
               "mesh", mesh_grid, "max |kernel - plain| (bitwise, the sign of zero included; NaN at the same vertices)",
-              ptxas=ptxas["mesh"],
+              ptxas=ptxas["mesh"], launches_by_path={"mesh normals (4c)": launches["mesh"], **paths("mesh")},
               shapes={"grid1280_3276800_faces": shape_times(mesh_big), "teapot": shape_times(mesh_teapot)}),
         # P1 and P2 at the roofline tool's sizes; their twins timed at the same
         # sizes with CUDA events around one call (phase 3).

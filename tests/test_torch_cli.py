@@ -1,8 +1,8 @@
 """The port's command line (``align3d_torch/cli.py``) against the JAX
-package's (``align3d_tpu/cli.py``): JAX odometry command lines that use only
-flags the port has parse to the same values with both parsers, and the JAX
-flags the port lacks are exactly those that wait for later modules
-(ROADMAP Queue 1: the viewer)."""
+package's (``align3d_tpu/cli.py``): JAX odometry and viewer command lines
+parse to the same values with both parsers, and the JAX flags the port
+lacks are exactly those that wait for later modules (none since the viz
+slice)."""
 
 import argparse
 
@@ -14,8 +14,9 @@ from align3d_torch import cli
 
 SAMPLE1 = "tests/data/rgbd/sample1"
 SHARED = ("format", "dataset", "max_frames", "no_bilateral", "engine", "coarse_exact", "quiet", "save_trajectory",
-          "checkpoint", "checkpoint_every", "loop_closure")
-WAITING = {"--show"}
+          "checkpoint", "checkpoint_every", "loop_closure", "show")
+VIEWER_SHARED = ("format", "dataset", "output", "max_frames", "animate", "interactive", "port")
+WAITING = set()
 
 COMMAND_LINES = [
     ["odometry", "slamtb", SAMPLE1],
@@ -28,6 +29,14 @@ COMMAND_LINES = [
     ["odometry", "ilrgbd", "bedroom", "20", "--checkpoint", "ck.npz", "--checkpoint-every", "3", "-q"],
     ["odometry", "slamtb", SAMPLE1, "--checkpoint-every", "1", "--save-trajectory", "out.tum"],
     ["odometry", "tum", "rgbd_dataset_freiburg1_desk", "--loop-closure", "--save-trajectory", "out.tum"],
+    ["odometry", "slamtb", SAMPLE1, "10", "--show", "recon.png"],
+    ["odometry", "ilrgbd", "bedroom", "3", "--no-bilateral", "-q", "--show", "fly.gif"],
+]
+VIEWER_LINES = [
+    ["viewer", "slamtb", SAMPLE1],
+    ["viewer", "slamtb", SAMPLE1, "-o", "p.png", "--max-frames", "8"],
+    ["viewer", "ilrgbd", "bedroom", "--output", "fly", "--animate"],
+    ["viewer", "tum", "rgbd_dataset_freiburg1_desk", "--interactive", "--port", "9000", "--max-frames", "4"],
 ]
 
 
@@ -35,6 +44,7 @@ def _jax_parse(monkeypatch, argv):
     """The namespace JAX's parser makes of ``argv`` (its command not run)."""
     seen = []
     monkeypatch.setattr(jax_cli, "cmd_odometry", lambda args: seen.append(args) or 0)
+    monkeypatch.setattr(jax_cli, "cmd_viewer", lambda args: seen.append(args) or 0)
     assert jax_cli.main(argv) == 0
     return seen[0]
 
@@ -47,9 +57,17 @@ def test_jax_command_lines_parse_alike(monkeypatch, argv):
     assert ours.fn is cli.cmd_odometry and ours.device == "cuda"
 
 
-def _odometry_flags(parser: argparse.ArgumentParser) -> set:
+@pytest.mark.parametrize("argv", VIEWER_LINES, ids=lambda a: " ".join(a[3:]) or "defaults")
+def test_jax_viewer_command_lines_parse_alike(monkeypatch, argv):
+    ours = cli.build_parser().parse_args(argv)
+    theirs = _jax_parse(monkeypatch, argv)
+    assert {k: getattr(ours, k) for k in VIEWER_SHARED} == {k: getattr(theirs, k) for k in VIEWER_SHARED}
+    assert ours.fn is cli.cmd_viewer and ours.device == "cuda"
+
+
+def _flags(parser: argparse.ArgumentParser, command: str = "odometry") -> set:
     sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-    return {s for a in sub.choices["odometry"]._actions for s in a.option_strings} - {"-h", "--help"}
+    return {s for a in sub.choices[command]._actions for s in a.option_strings} - {"-h", "--help"}
 
 
 def test_missing_flags_are_the_queued_ones(monkeypatch, capsys):
@@ -64,11 +82,12 @@ def test_missing_flags_are_the_queued_ones(monkeypatch, capsys):
         jax_cli.main(["odometry", "--help"])
     monkeypatch.undo()
     capsys.readouterr()
-    theirs = _odometry_flags(made[0])
-    ours = _odometry_flags(cli.build_parser())
+    theirs = _flags(made[0])
+    ours = _flags(cli.build_parser())
     assert "--coarse-exact" in ours and "-q" in ours
     assert theirs - ours == WAITING
     assert ours - theirs == {"--device"}
+    assert _flags(made[0], "viewer") | {"--device"} == _flags(cli.build_parser(), "viewer")
 
 
 @pytest.mark.parametrize("value", ["0", "-2"])

@@ -632,3 +632,49 @@ def test_align_batched_bitwise_against_single_pairs(cuda_device):
     for b in range(6):
         rot, trans, r = align_impl(eye, zero, *(a[b] for a in args), targets.intrinsics, params)
         assert torch.equal(rot, pose.rotation[b]) and torch.equal(trans, pose.translation[b]) and torch.equal(r, res[b])
+
+
+def _renders_equal(a, b) -> bool:
+    return torch.equal(a.color.cpu(), b.color.cpu()) and torch.equal(
+        a.depth.cpu().view(torch.int32), b.depth.cpu().view(torch.int32))
+
+
+def test_viz_points_card_bitwise_cpu_and_rerun(cuda_device):
+    """Two sample1 frames as posed clouds, built on the CPU and rendered
+    there and, uploaded, on the card: bitwise (the projection is float64
+    elementwise arithmetic and the z-test a min of int64 keys), and a rerun
+    on the card bitwise. (Clouds built on the card differ in the last bit
+    where the backprojection divides by a scalar.)"""
+    from align3d_torch.io.datasets import SubsetDataset
+    from align3d_torch.viz.viewers import GeoViewer, RgbdDatasetViewer
+
+    cpu = RgbdDatasetViewer(SubsetDataset(SlamTbDataset.load(str(RGBD / "sample1")), [0, 1]), 160, 120,
+                            device="cpu")
+    cpu.build_scene()
+    card = GeoViewer(160, 120, device=cuda_device)
+    for node in cpu.viewer.scene.nodes:
+        card.add(node.points.to(cuda_device), colors=node.colors.to(cuda_device), transform=node.transform)
+    for az in (0.0, 2.0):
+        first, want = card.render_frame(az), cpu.viewer.render_frame(az)
+        assert _renders_equal(first, want) and _renders_equal(card.render_frame(az), first)
+        assert torch.isfinite(first.depth).sum() > 1000
+
+
+def test_viz_mesh_one_k5_launch_a_render(cuda_device):
+    """A mesh node without normals: one K5 launch a render (its corner
+    table kept between renders), bitwise the CPU path's render."""
+    from align3d_torch.viz.viewers import GeoViewer
+
+    geom = read_off(DATA / "teapot.off")
+    renders = {}
+    for device in (cuda_device, torch.device("cpu")):
+        viewer = GeoViewer(640, 480, device=device)
+        viewer.add(geom.points, faces=geom.faces)
+        before = mesh.LAUNCHES
+        renders[device.type] = [viewer.render_frame(0.3, 0.4), viewer.render_frame(0.3, 0.4)]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert mesh.LAUNCHES - before == 2
+    card, cpu = renders["cuda"], renders["cpu"]
+    assert _renders_equal(card[0], card[1]) and _renders_equal(card[0], cpu[0])
+    assert torch.isfinite(card[0].depth).sum() > 10000

@@ -1,8 +1,9 @@
 """Public-name parity of the port: every module of ``align3d_tpu/`` has a
 counterpart at the same path under ``align3d_torch/``, or is named below as
-deliberately left unported or still to come (ROADMAP); and every public
-class, method and function of a ported module has a counterpart of the same
-name there. Both trees are parsed with ``ast``; nothing is imported."""
+deliberately left unported or still to come (ROADMAP; nothing is to come
+since the viz slice); and every public class, method and function of a
+ported module has a counterpart of the same name there. Both trees are
+parsed with ``ast``; nothing is imported."""
 
 import ast
 from pathlib import Path
@@ -25,14 +26,9 @@ UNPORTED_NAMES = {
 }
 PYTREE = {"tree_flatten", "tree_unflatten"}
 
-# ROADMAP Queue 1, item 5: viz and the viewer.
-TO_COME_MODULES = {
-    "viz/__init__.py", "viz/dataset_viewer.py", "viz/datatypes.py", "viz/interactive.py", "viz/manager.py",
-    "viz/render.py", "viz/scene.py", "viz/sphere.py", "viz/viewers.py", "viz/virtual_camera.py",
-}
-TO_COME_NAMES = {
-    "cli.py": {"cmd_viewer"},
-}
+# ROADMAP Queue 1: every module is ported.
+TO_COME_MODULES = set()
+TO_COME_NAMES = {}
 
 # Counterparts that live in another module of the port.
 MOVED = {("icp/image_icp.py", "icp_step"): ("ops/icp_fused.py", "icp_step")}
