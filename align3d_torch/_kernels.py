@@ -63,6 +63,7 @@ _SIGNATURES = {
     "a3d_gather_lane": [_P, _P, _P, _I, _I, _P],  # x, idx, out, rows, steps, stream
     "a3d_gather_table": [_P, ctypes.c_uint, _P, _P, _I, _I, _P],  # table, m, x, out, n, steps, stream
     "a3d_mesh_normals": [_P, _P, _P, _I, _I, _P, _P],  # points, (D, N, 2) corner table, counts, N, D, out, stream
+    "a3d_column_mean": [_P, _P, _I, _P, _P],  # (sum N, 3) points, (M + 1,) int64 offsets, M, (M, 3) out, stream
 }
 
 _lock = threading.Lock()

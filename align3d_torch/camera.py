@@ -10,6 +10,7 @@ import dataclasses
 
 import torch
 
+from align3d_torch.extra_math import div_scalar
 from align3d_torch.se3 import Transform
 
 
@@ -45,8 +46,8 @@ class CameraIntrinsics:
 
     def backproject(self, u: torch.Tensor, v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """Pixel (u, v) and depth z -> 3D point (..., 3) (src/camera.rs:102)."""
-        x = (u - self.cx) * z / self.fx
-        y = (v - self.cy) * z / self.fy
+        x = div_scalar((u - self.cx) * z, self.fx)
+        y = div_scalar((v - self.cy) * z, self.fy)
         return torch.stack([x, y, torch.broadcast_to(z, x.shape)], dim=-1)
 
     def backproject_grid(self, depth: torch.Tensor) -> torch.Tensor:
@@ -54,8 +55,8 @@ class CameraIntrinsics:
         h, w = depth.shape[-2:]
         vs = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
         us = torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :]
-        x = (us - self.cx) * depth / self.fx
-        y = (vs - self.cy) * depth / self.fy
+        x = div_scalar((us - self.cx) * depth, self.fx)
+        y = div_scalar((vs - self.cy) * depth, self.fy)
         return torch.stack([x, y, depth], dim=-1)
 
     def scale(self, factor: float) -> "CameraIntrinsics":

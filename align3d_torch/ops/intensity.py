@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from align3d_torch.extra_math import div_scalar
+
 # Numeric gradient step (src/intensity_map.rs:12-14).
 GRAD_H = 0.005
 GRAD_H_INV = 1.0 / GRAD_H
@@ -20,7 +22,7 @@ def build_intensity_map(image_u8: torch.Tensor) -> torch.Tensor:
     """(..., H, W) u8 luma -> (..., H+2, W+2) f32 map with the reference
     border fill."""
     *lead, h, w = image_u8.shape
-    core = image_u8.to(torch.float32) / 255.0
+    core = div_scalar(image_u8.to(torch.float32), 255.0)
     m = torch.zeros((*lead, h + BORDER, w + BORDER), dtype=torch.float32, device=image_u8.device)
     m[..., :h, :w] = core
     # Rows h, h+1 copy row h-1 for columns 0..w-2 only (:61-66).

@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from align3d_torch.extra_math import div_scalar
+
 # Large primes for the 3D cell hash (standard spatial-hash constants).
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
 
@@ -48,8 +50,7 @@ class VoxelHashGrid:
     def build(cls, points: torch.Tensor, cell_size: float) -> "VoxelHashGrid":
         points = points.to(torch.float32)
         # The JAX build runs eagerly, where the division is a true one.
-        scale = torch.full((), cell_size, dtype=torch.float32, device=points.device)
-        h = _cell_hash(torch.floor(points / scale).to(torch.int32))
+        h = _cell_hash(torch.floor(div_scalar(points, cell_size)).to(torch.int32))
         order = torch.argsort(h, stable=True)
         return cls(h[order], points[order], order.to(torch.int32), cell_size)
 

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from align3d_torch.extra_math import div_scalar
+
 _EPSILON = 1e-8
 _F32 = torch.float32
 
@@ -157,7 +159,12 @@ class Transform:
         return cls(rot, _mv(v_jac, v))
 
     def log(self) -> torch.Tensor:
-        """se(3) logarithm ``[v, omega]`` with ``exp(T.log()) == T``."""
+        """se(3) logarithm ``[v, omega]`` with ``exp(T.log()) == T``. The
+        small-angle branch is IEEE arithmetic only (its divisions by a
+        tensor, ``omega^2`` through :func:`_matmul3`, ``V^-1 t`` as three
+        products summed in order: a library reduction over the 3 terms of
+        a row adds them in another order on the card), so the card gives it
+        the CPU's bits."""
         rot = self.rotation
         trace = rot[..., 0, 0] + rot[..., 1, 1] + rot[..., 2, 2]
         cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
@@ -165,26 +172,28 @@ class Transform:
         safe_cos = torch.where(small, 0.0, cos_theta)
         theta = torch.where(small, 0.0, torch.arccos(safe_cos))
         one_m_cos = 1.0 - cos_theta
-        theta_sq = torch.where(small, 2.0 * one_m_cos * (1.0 + one_m_cos / 6.0), theta * theta)
+        theta_sq = torch.where(small, 2.0 * one_m_cos * (1.0 + div_scalar(one_m_cos, 6.0)), theta * theta)
         sin_theta = torch.sin(torch.where(small, 1.0, theta))
-        factor = torch.where(small, 0.5 + theta_sq / 12.0, theta / (2.0 * sin_theta))
+        factor = torch.where(small, 0.5 + div_scalar(theta_sq, 12.0), theta / (2.0 * sin_theta))
         skew = rot - rot.transpose(-1, -2)
         omega = factor[..., None] * torch.stack(
             [skew[..., 2, 1], skew[..., 0, 2], skew[..., 1, 0]], dim=-1
         )
         big_omega = _skew(omega)
-        big_omega_sq = big_omega @ big_omega
+        big_omega_sq = _matmul3(big_omega, big_omega)
         eye = torch.eye(3, dtype=rot.dtype, device=rot.device).expand(rot.shape)
         safe_theta = torch.where(small, 1.0, theta)
         safe_theta_sq = torch.where(small, 1.0, theta_sq)
         coef = torch.where(
             small,
-            1.0 / 12.0 + theta_sq / 720.0,
+            1.0 / 12.0 + div_scalar(theta_sq, 720.0),
             (1.0 - 0.5 * safe_theta * torch.cos(0.5 * safe_theta) / torch.sin(0.5 * safe_theta))
             / safe_theta_sq,
         )
         v_inv = eye - 0.5 * big_omega + coef[..., None, None] * big_omega_sq
-        return torch.cat([_mv(v_inv, self.translation), omega], dim=-1)
+        t = self.translation[..., None, :]
+        v = (v_inv[..., 0] * t[..., 0] + v_inv[..., 1] * t[..., 1]) + v_inv[..., 2] * t[..., 2]
+        return torch.cat([v, omega], dim=-1)
 
     # -- core ops --------------------------------------------------------
     def compose(self, other: "Transform") -> "Transform":

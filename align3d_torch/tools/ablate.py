@@ -380,9 +380,9 @@ def mesh_designs(device) -> dict:
         for name in order + order[::-1]:
             fn = lambda name=name: call(name)  # noqa: E731
             row.setdefault(f"{name}_bitwise", same_bits(fn(), ref))
-            ms, seen = device_ms(fn, calls)
+            ms, acts = device_ms(fn, calls)
             row.setdefault(f"{name}_ms", []).append(ms)
-            row.setdefault(f"{name}_activities", []).append(seen)
+            row.setdefault(f"{name}_activities", []).append(len(acts))
             row.setdefault(f"{name}_event_ms", []).append(time_ms(fn, reps=calls))
             if MESH_VARIANTS[name]["A3D_MESH_DESIGN"] != 2:  # a cooperative launch is not captured
                 row.setdefault(f"{name}_graph_ms", []).append(graph_ms(fn, calls))

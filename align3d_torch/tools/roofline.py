@@ -261,9 +261,9 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, calls: int, kernel: str | None = None) -> tuple[float | None, int]:
+def device_ms(fn, calls: int, kernel: str | None = None) -> tuple[float | None, list[tuple[str, float]]]:
     """(device ms per call of ``fn`` from ``torch.profiler`` over ``calls``
-    calls, the number of device activities the profiler saw).
+    calls, the (name, µs) device activities the profiler saw).
 
     The profiler misses an activity now and then (on an H100 with torch
     2.11: 1 of 50 launches, 2 of 10), so the activities' summed duration is
@@ -271,19 +271,21 @@ def device_ms(fn, calls: int, kernel: str | None = None) -> tuple[float | None, 
     of it (the wrapper issues nothing else) and the time is their mean.
     Without, every call is taken to issue the same ``k = ceil(seen /
     calls)`` activities, and the time is k times their mean. None when the
-    profiler saw no activity.
+    profiler saw no activity. Only the device's activities are recorded:
+    recording the host's ops too costs seconds a call on paths of tens of
+    thousands of launches (the 500-pose graph).
     """
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     acts = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return per_call_ms(acts, calls, kernel), len(acts)
+    return per_call_ms(acts, calls, kernel), acts
 
 
 def per_call_ms(activities: list[tuple[str, float]], calls: int, kernel: str | None = None) -> float | None:

@@ -112,20 +112,23 @@ def bucket_plan(depths: np.ndarray, filt, quantum: int = 16) -> list:
 def real_pairs(batch: int, device) -> tuple[RangeImage, RangeImage]:
     """(sources, targets): level-0 range images of ``batch`` distinct real
     pairs, batched on ``device``: sample1 + sample2 frames, pairs (i + 1 ->
-    i) forward, then (i -> i + 1) reversed, as ``bench.py`` takes them."""
-    picked = []
-    for name in ("sample1", "sample2"):
-        _, frames = _load(name)
-        picked += [(name, i, f) for i, f in enumerate(frames)]
-    series = _series(picked)
-    n = len(series)
+    i) forward, then (i -> i + 1) reversed, as ``bench.py`` takes them. Only
+    the frames the pairs use are decoded and built (each frame's images are
+    its own, whatever else is in the batch)."""
+    datasets = {name: SlamTbDataset.load(str(DATA / "rgbd" / name)) for name in ("sample1", "sample2")}
+    order = [(name, i) for name, ds in datasets.items() for i in range(len(ds))]
+    n = len(order)
     src = list(range(1, n)) + list(range(0, n - 1))
     tgt = list(range(0, n - 1)) + list(range(1, n))
     if len(src) < batch:
         raise RuntimeError(f"only {len(src)} distinct pairs available")
+    src, tgt = src[:batch], tgt[:batch]
+    used = sorted(set(src) | set(tgt))
+    series = _series([(*order[k], datasets[order[k][0]].get(order[k][1])) for k in used])
+    at = {k: j for j, k in enumerate(used)}
     images = build_pyramid_impl(
         True, True, 1, 1.0, series.camera, torch.from_numpy(series.depth_scales),
         torch.from_numpy(series.colors).to(device), torch.from_numpy(series.depths.astype(np.int32)).to(device),
     )[0]
-    return (images.frames(torch.tensor(src[:batch], device=images.device)),
-            images.frames(torch.tensor(tgt[:batch], device=images.device)))
+    return (images.frames(torch.tensor([at[k] for k in src], device=images.device)),
+            images.frames(torch.tensor([at[k] for k in tgt], device=images.device)))

@@ -36,6 +36,9 @@ class Node:
     # at the first render without ``normals`` and kept while ``faces`` is
     # the same tensor, unmodified, and the points keep their count and device.
     _normals_of: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+    # The fitted sphere of the world points, kept while ``points`` is the
+    # same tensor, unmodified, and ``transform`` holds the same values.
+    _sphere_of: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     def world_points(self) -> torch.Tensor:
         pts = self.points.reshape(-1, 3).to(torch.float32)
@@ -43,8 +46,24 @@ class Node:
         # numpy's pts @ R.T + t.
         return _fma_rows(transform[:3, :3].to(torch.float64), pts).T.contiguous() + transform[:3, 3]
 
+    def _sphere_key(self) -> tuple:
+        return self.points._version, np.asarray(self.transform, np.float32).tobytes()
+
+    def kept_sphere(self) -> Sphere3D | None:
+        """The fitted sphere, if it was fitted to the points and transform
+        the node holds now."""
+        kept = self._sphere_of
+        if kept is None or kept[0] is not self.points or kept[1] != self._sphere_key():
+            return None
+        return kept[2]
+
+    def keep_sphere(self, sphere: Sphere3D) -> None:
+        self._sphere_of = (self.points, self._sphere_key(), sphere)
+
     def bounding_sphere(self) -> Sphere3D:
-        return Sphere3D.from_points(self.world_points())
+        if self.kept_sphere() is None:
+            self.keep_sphere(Sphere3D.from_points(self.world_points()))
+        return self.kept_sphere()
 
     def vertex_normals(self, world: torch.Tensor) -> torch.Tensor:
         """The mesh's vertex normals at ``world`` (its world points): the
@@ -71,10 +90,15 @@ class Scene:
         return node
 
     def bounding_sphere(self) -> Sphere3D:
+        """The union of the visible nodes' spheres; the nodes with no kept
+        fit are fitted together (on the card: one K6 launch)."""
+        visible = [node for node in self.nodes if node.visible]
+        stale = [node for node in visible if node.kept_sphere() is None]
+        for node, fit in zip(stale, Sphere3D.fit_many([node.world_points() for node in stale])):
+            node.keep_sphere(fit)
         sphere = Sphere3D.empty()
-        for node in self.nodes:
-            if node.visible:
-                sphere = sphere.union(node.bounding_sphere())
+        for node in visible:
+            sphere = sphere.union(node.kept_sphere())
         return sphere
 
     def render(

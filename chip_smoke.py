@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
    the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
-   K3 (its four instantiations), K4 and K5.
+   K3 (its four instantiations), K4, K5 and K6.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
    ``torch.profiler`` (for K1-K3 and K5 checked to be one launch of the
@@ -39,7 +39,10 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (b) only, with no launch of form (a) and no ``_normalize`` pass:
    a. odometry: ``run_odometry`` on sample1, 10 frames, bilateral filter on;
       the trajectory error against ground truth, the poses against the JAX
-      package's golden trajectory, a bitwise-identical second run;
+      package's golden trajectory, a bitwise-identical second run; how far
+      the trajectory moves when the divisions by a number are made as CUDA
+      makes them for a CPU scalar (a product with the float32 reciprocal:
+      the port before the division fix, ``extra_math.div_scalar``);
    b. point-cloud ICP: ``Icp(IcpParams())``, banded engine, sample1 frame 0
       <- frame 1 at full resolution: the angle error against ground truth,
       the hash engine within 0.02 rad, one K4 launch per iteration, a
@@ -136,8 +139,14 @@ Run from the root of a checkout. Phases, each of which fails the run:
        (8,375,903 points with the polyline; its PNG equal to the direct
        render), on the card only, and the 8-frame ``RgbdDatasetViewer``
        scene on both (the CPU comparison is cut to those 8 frames to keep
-       the phase near a minute); the renderer alone bitwise: the CPU path's
-       8 clouds uploaded and rendered on the card;
+       the phase near a minute): the 8 clouds built on each device equal
+       and the two renders bitwise; the renderer alone bitwise (the CPU
+       path's 8 clouds uploaded and rendered on the card); host ms of the
+       fitted spheres and of a render that refits every node (before the
+       fit was kept per node); K6 (the spheres' centres, numpy's means)
+       launched once for all nodes over every render of a viewer, held
+       bitwise against numpy on the preview's nodes in that one launch and
+       timed so, beside numpy on the host and ``torch.segment_reduce``;
     b. ``render_dataset_flythrough`` at 480x360, 24 views: host s and GIF
        bytes; the GIF decoded by this script's LZW reader, each frame the
        palette's quantization of the card's render of that view;
@@ -151,6 +160,18 @@ Run from the root of a checkout. Phases, each of which fails the run:
     e. ``InteractiveViewer`` on the 8-frame scene driven over HTTP (page,
        frame, W, a drag, key 1, state, quit), each frame equal to a direct
        render of its camera; ms a ``/frame.png`` request.
+11. The benches (``align3d_torch/benches``), each with ``--quick`` (two
+    repeats, one warm-up call, the JAX shapes) in this process, stdout
+    captured: exactly one JSON line under its JAX metric name, with a
+    finite positive value (``bench_scaling`` on one card: null with the
+    reason "one card", its world-1 step timed); the launches a call each
+    bench's line reports against what its path issues (K1 10 an align at
+    B = 64 and 10 a kernel-only call, 70 an ``odometry_step``, K2 and K3
+    one a bucket with the filter and one a ``filter_static``, K4 10 a pcl
+    align and one a nearest search, K5 one a call); each bench's result
+    bitwise the same port call made here on the same inputs (the global
+    refinement bench excepted: ``index_add_`` adds by atomics); each line
+    printed as ``bench <module>: {...}``.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -213,7 +234,7 @@ DIST_SOLVE_ATOL = 1e-4  # 9c/9d vs unsharded: tests/test_pose_graph.py:86-103, t
 DIST_TIMEOUT_S = 300  # 9: a rank still running after this fails the run
 VIZ_SCENE_FRAMES = 8  # 10: the interactive scene and the command line's preview
 VIZ_VIEWS = 24  # 10b: views of the fly-through
-VIZ_CARD_CPU_SHARE = 0.999  # 10a/10c: pixels of equal colour, card against the CPU path
+VIZ_CARD_CPU_SHARE = 0.999  # 10c: pixels of equal colour, card against the CPU path (10a: bitwise)
 
 # Published H100 SXM peaks at 700 W (the bounds are stated against them).
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -225,7 +246,7 @@ PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 #: Kernel names in csrc/, by the wrapper that launches them (K3's two forms
 #: are instantiations of one template).
 KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",),
-                "mesh": ("mesh_normals",)}
+                "mesh": ("mesh_normals",), "sphere": ("column_mean",)}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
 PALLAS_CALLS = {"K1": ["align3d_tpu/ops/icp_pallas_v4.py:508", "align3d_tpu/ops/icp_pallas_v3.py:761"],
@@ -281,9 +302,9 @@ def timings(torch, fn, n: int = TIMED_CALLS, profiled: int | None = None,
     end.synchronize()
     per_call = start.elapsed_time(end) / n
     profiled = n if profiled is None else profiled
-    ms, seen = device_ms(fn, profiled, kernel)
-    if kernel is not None and seen != profiled:
-        print(f"the profiler saw {seen} {kernel} launches of {profiled}")
+    ms, acts = device_ms(fn, profiled, kernel)
+    if kernel is not None and len(acts) != profiled:
+        print(f"the profiler saw {len(acts)} {kernel} launches of {profiled}")
     return ms, per_call
 
 
@@ -493,6 +514,31 @@ def check_icp_blocks(torch, got, ref, mask, label: str) -> float:
                     and g_err <= ICP_REL and sq_err <= ICP_REL):
                 raise AssertionError(f"{label}, pair {b} {name}, differs from its plain twin")
     return worst
+
+
+def reciprocal_division_move(torch, TransformMetrics, subset, builder, first) -> dict:
+    """4a's odometry once more with every ``div_scalar`` site dividing by a
+    Python number, which CUDA turns into a product with the float32
+    reciprocal (the port before the division fix): how far the trajectory
+    moves against ``first``, the run on this code."""
+    from align3d_torch import camera, se3
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.odometry import run_odometry
+    from align3d_torch.ops import intensity
+
+    saved = [(m, m.div_scalar) for m in (camera, se3, intensity)]
+    try:
+        for m, _ in saved:
+            m.div_scalar = lambda x, c: x / c
+        before = run_odometry(subset, DEVICE, range_builder=builder, icp_params=MsIcpParams.default())
+    finally:
+        for m, f in saved:
+            m.div_scalar = f
+    a, b = before.trajectory.camera_to_world, first.trajectory.camera_to_world
+    diff = TransformMetrics.new(a, b)
+    return {"max_rad": float(diff.angle.max()), "max_m": float(diff.translation.max()),
+            "mean_rad": float(diff.angle.mean()), "mean_m": float(diff.translation.mean()),
+            "bitwise": torch.equal(a.rotation, b.rotation) and torch.equal(a.translation, b.translation)}
 
 
 def cloud(torch, dataset, index):
@@ -2095,8 +2141,57 @@ def render_on_both(torch, viewers: dict, render, cpu_runs: int = 3) -> dict:
     return out
 
 
+def fit_costs(torch, viewer) -> dict:
+    """Host ms of the fitted spheres of every node (their world points, one
+    K6 launch for the means, the radii, one copy back), and of a render with
+    every node's fit dropped first: what each render paid before the fit was
+    kept."""
+    from align3d_torch.viz.sphere import Sphere3D
+
+    nodes = [n for n in viewer.scene.nodes if n.visible]
+
+    def refit():
+        for n in nodes:
+            n._sphere_of = None
+        return viewer.render_frame()
+
+    fit_ms, _ = host_ms(torch, lambda: Sphere3D.fit_many([n.world_points() for n in nodes]))
+    refit_ms, _ = host_ms(torch, refit)
+    return {"fit_host_ms": fit_ms, "host_ms_fit_every_render": refit_ms}
+
+
 def scene_points(viewer) -> int:
     return sum(int(n.points.shape[0]) for n in viewer.scene.nodes if n.visible)
+
+
+def check_sphere_mean(torch, viewer) -> tuple:
+    """K6 against its twin on the world points of ``viewer``'s nodes, all in
+    one launch as the scene's fit gives them, bitwise; its time beside the
+    twin's (numpy on the host, the points already there) and
+    ``torch.segment_reduce``'s mean (PyTorch's own reduction: not numpy's
+    bits). The time is the wrapper's device work: the offsets' copy and K6.
+    Returns ``entry``'s ``checked`` tuple and the nodes' sizes."""
+    from align3d_torch.viz import sphere
+
+    worlds = [n.world_points() for n in viewer.scene.nodes if n.visible]
+    counts = [int(w.shape[0]) for w in worlds]
+    pts = torch.cat(worlds)
+    pts_cpu = pts.cpu()
+    got, ref = sphere.numpy_means(pts, counts).cpu(), sphere.numpy_means_plain(pts_cpu, counts)
+    lengths = torch.tensor(counts, device=pts.device)
+    lib = torch.segment_reduce(pts, "mean", lengths=lengths, axis=0).cpu()
+    print(f"K6 on {len(worlds)} nodes of {min(counts)}-{max(counts)} points, one launch: bitwise numpy's "
+          f"means {torch.equal(got, ref)}; torch.segment_reduce differs by {float((lib - ref).abs().max())}")
+    if not torch.equal(got, ref):
+        raise AssertionError("K6 differs from numpy's mean")
+    plain_ms, _ = host_ms(torch, lambda: sphere.numpy_means_plain(pts_cpu, counts))
+    library = timings(torch, lambda: torch.segment_reduce(pts, "mean", lengths=lengths, axis=0))
+    b = bound(pts.numel() * 4 + len(counts) * 12, pts.numel())  # the points once, the centres out; an add a coordinate
+    return (float((got - ref).abs().max()), timings(torch, lambda: sphere.numpy_means(pts, counts)),
+            (None, plain_ms), b, {"library_ms": library[0], "library_call_ms": library[1],
+                                  "library_call": "torch.segment_reduce(points, 'mean', lengths, axis=0) "
+                                                  "(a parallel reduction: not numpy's bits)",
+                                  "library_max_abs_diff": float((lib - ref).abs().max())}), counts
 
 
 def viz_dataset(torch, failures: list) -> dict:
@@ -2120,10 +2215,9 @@ def viz_dataset(torch, failures: list) -> dict:
         rgbd = RgbdDatasetViewer(SlamTbDataset.load(str(SAMPLE1)), 640, 480, device=d)
         rgbd.build_scene(max_frames=VIZ_SCENE_FRAMES)
         scene[d] = rgbd.viewer
-    # The renderer alone: the CPU path's clouds uploaded to the card. (The
-    # card's own clouds differ from the CPU's in the last bit where the
-    # backprojection divides: CUDA divides by a scalar through its
-    # reciprocal.)
+    # The renderer alone: the CPU path's clouds uploaded to the card; and the
+    # clouds built on each device, which must be equal (the backprojection
+    # divides on the card as on the CPU).
     same = GeoViewer(640, 480, device=DEVICE)
     for node in scene["cpu"].scene.nodes:
         same.add(node.points.to(DEVICE), colors=node.colors.to(DEVICE), transform=node.transform)
@@ -2135,16 +2229,26 @@ def viz_dataset(torch, failures: list) -> dict:
         "max_ulps": int((card_pts.view(torch.int32).long() - cpu_pts.view(torch.int32).long()).abs().max())}
     if not out["scene_8_frames_same_points_bitwise"]:
         failures.append("10a: the card's render of the CPU path's clouds differs from the CPU path's")
+    if out["scene_8_frames_clouds"]["coordinates_differing"]:
+        failures.append(f"10a: the clouds built on the card differ from the CPU's: {out['scene_8_frames_clouds']}")
+    from align3d_torch.viz import sphere
+
     for name, viewers in (("preview_sample1", {DEVICE: preview}), ("scene_8_frames", scene)):
+        sphere.MEAN_LAUNCHES = 0
         got = render_on_both(torch, viewers, lambda v: v.render_frame())
+        got["k6_launches"] = sphere.MEAN_LAUNCHES  # one fit of all nodes, kept through every later render
         got["points"], got["nodes"] = scene_points(viewers[DEVICE]), len(viewers[DEVICE].scene.nodes)
+        got.update(fit_costs(torch, viewers[DEVICE]))
         img = got.pop("_image")
         out[name] = got
         if not got["card_rerun_bitwise"]:
             failures.append(f"10a: {name}: a rerun on the card differs")
-        if "card_vs_cpu" in got and got["card_vs_cpu"]["color_equal_share"] < VIZ_CARD_CPU_SHARE:
+        if got["k6_launches"] != 1:
+            failures.append(f"10a: {name}: {got['k6_launches']} K6 launches for {got['nodes']} nodes, not 1")
+        if "card_vs_cpu" in got and not got["card_vs_cpu"]["bitwise"]:
             failures.append(f"10a: {name}: card against CPU {got['card_vs_cpu']}")
         if name == "preview_sample1":
+            out["k6"], out["k6_node_points"] = check_sphere_mean(torch, preview)
             with tempfile.TemporaryDirectory() as tmp:
                 path = Path(tmp) / "preview.png"
                 dataset_viewer.render_dataset_preview("slamtb", str(SAMPLE1), str(path), device=DEVICE)
@@ -2343,6 +2447,202 @@ def viz(torch, counters, odometry_launches: dict) -> tuple[dict, list]:
     return out, failures
 
 
+#: Phase 11: each bench's argv (two repeats, one warm-up call, the JAX shapes).
+BENCH_ARGV = ["--quick"]
+
+
+def captured(run, argv) -> tuple:
+    """(outcome, stdout lines) of a bench's ``run(argv)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outcome = run(argv)
+    return outcome, [line for line in buf.getvalue().splitlines() if line.strip()]
+
+
+def per_call(summary: dict) -> dict:
+    return {k: v / summary["calls"] for k, v in summary["launches"].items()}
+
+
+def same(torch, a, b) -> bool:
+    """Equal bit for bit: tensors, or tuples, lists and dicts of them."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(torch, x, y) for x, y in zip(a, b))
+    if hasattr(a, "rotation"):
+        return same(torch, (a.rotation, a.translation), (b.rotation, b.translation))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def max_gap(torch, a, b) -> float:
+    """The largest |a - b| over tensors, or tuples, lists and dicts of them."""
+    if isinstance(a, dict):
+        return max(max_gap(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return max(max_gap(torch, x, y) for x, y in zip(a, b))
+    if hasattr(a, "rotation"):
+        return max_gap(torch, (a.rotation, a.translation), (b.rotation, b.translation))
+    return float((a.cpu() - b.cpu()).abs().max())
+
+
+def direct_results(torch, name: str, mod, line: dict):
+    """The port call each bench times, made here on the same inputs as
+    ``line`` reports them."""
+    import numpy as np
+
+    from align3d_torch.icp.params import IcpParams, MsIcpParams
+    from align3d_torch.tools import series
+
+    if name == "bench_image_icp":
+        sources, targets = series.real_pairs(64, DEVICE)
+        return mod.align(mod.packed_pairs(sources, targets), sources.intrinsics, IcpParams(max_iterations=10))
+    if name == "bench_icp_kernel":
+        sources, targets = mod.synthetic_pairs(8, DEVICE)
+        packed = mod.packed_pairs(sources, targets)
+        params = IcpParams(max_iterations=10)
+        return {"kernel_only": mod.kernel_steps(packed, sources.intrinsics, params),
+                "full_align": mod.align(packed, sources.intrinsics, params)}
+    if name == "bench_odometry":
+        from align3d_torch.ops.bilateral import BilateralFilter
+        from align3d_torch.parallel import batch as pb
+
+        synthetic = mod.synthetic_series(line["series"]["synthetic"]["off"]["pairs"] + 1)
+        out = {}
+        for key, s in (("real", series.real_frames()), ("mixed", series.mixed_frames()), ("synthetic", synthetic)):
+            scales = s.depth_scales
+            colors, depths = torch.from_numpy(s.colors).to(DEVICE), torch.from_numpy(s.depths.astype("int32")).to(DEVICE)
+            if isinstance(scales, np.ndarray):
+                scales = torch.from_numpy(scales).to(DEVICE)
+            for label, f in (("off", None), ("on", BilateralFilter())):
+                out[(key, label)] = pb.odometry_step(s.camera, scales, colors, depths, MsIcpParams.default(),
+                                                     bilateral_filter=f, device=DEVICE).camera_to_world
+        return out
+    if name == "bench_pcl_icp":
+        from align3d_torch.icp.pcl_icp import Icp
+
+        target, source, _ = mod.clouds(100_000, DEVICE)
+        return Icp(IcpParams(max_iterations=10), target.points, target.normals).align(source.points, source.normals)
+    if name == "bench_voxel_nn":
+        from align3d_torch.ops.nn_banded import SortedGrid, nearest_banded
+
+        db, q = (torch.from_numpy(a).to(DEVICE) for a in mod.clouds(500_000))
+        grid = SortedGrid.build(db, mod.CELL)
+        return {band: nearest_banded(grid, q, band_width=band) for band in (256, 512)}
+    if name == "bench_mesh":
+        from align3d_torch.ops.mesh import MeshNormals
+        from align3d_torch.tools.ablate import grid_mesh
+
+        pts, faces = grid_mesh(320)
+        return MeshNormals(faces, pts.shape[0], device=DEVICE)(torch.from_numpy(pts).to(DEVICE))
+    if name == "bench_normals":
+        from align3d_torch.ops.normals import compute_normals
+
+        pts, mask = (torch.from_numpy(a).to(DEVICE) for a in mod.grid(480, 640))
+        return compute_normals(pts, mask)
+    if name == "bench_bilateral":
+        from align3d_torch.ops.bilateral import BilateralFilter
+
+        filt = BilateralFilter()
+        out = {}
+        for key, depth in mod.depths(480, 640).items():
+            image = torch.from_numpy(depth.astype(np.int32)).to(DEVICE)
+            cmin = torch.tensor(int(depth.min()), dtype=torch.int32).to(DEVICE)
+            out[key] = filt.filter_static(image, cmin, mod.grid_depth(depth, filt))
+        return out
+    if name == "bench_scaling":
+        from align3d_torch.parallel import batch as pb
+
+        colors, depths = mod.series(8)
+        traj = pb.odometry_step(mod.camera(), mod.DEPTH_SCALE, colors, depths, MsIcpParams.default(), device=DEVICE)
+        return (traj.camera_to_world.rotation, traj.camera_to_world.translation)
+    if name == "bench_global_refine":
+        from align3d_torch.parallel import bundle_adjustment as ba
+        from align3d_torch.parallel import pose_graph as pg
+
+        probs = mod.problems(line["poses"], line["landmarks"], line["observations"]).to(DEVICE)
+        return {"pose_graph": pg.optimize(probs.graph, iterations=mod.PG_ITERS, solver="cg",
+                                          cg_iters=line["pg_cg_iters"]),
+                "bundle_adjustment": ba.optimize(probs.problem, iterations=mod.BA_ITERS, solver="coo",
+                                                 cg_iters=line["ba_cg_iters"])}
+    raise KeyError(name)
+
+
+def bench_launch_failures(name: str, line: dict) -> list:
+    """The launches a bench's line reports against what its path issues,
+    and the profiler's count beside them (reported, not gated)."""
+    want = {"bench_image_icp": {"K1": 10}, "bench_icp_kernel": {"K1": 10}, "bench_pcl_icp": {"K4": 10},
+            "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1}, "bench_bilateral": {"K2": 1, "K3": 1},
+            "bench_odometry": {"K1": STEP_ITERATIONS}, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
+    checks = [("line", line, want)]
+    if name == "bench_icp_kernel":
+        checks.append(("full_align", line["full_align"], {"K1": 10}))
+    if name == "bench_odometry":
+        for key in ("real", "mixed", "synthetic"):
+            on = line["series"][key]["on"]
+            checks.append((f"{key} filter on", on, {"K1": STEP_ITERATIONS, "K2": on["buckets"], "K3": on["buckets"]}))
+    out = []
+    for label, summary, kernels in checks:
+        if summary.get("launches") is None:  # the scaling bench's spawned worlds count none
+            continue
+        got = per_call(summary)
+        expected = {k: float(kernels.get(k, 0)) for k in got}
+        if got != expected:
+            out.append(f"11 {name} ({label}): launches a call {got}, expected {expected}")
+    return out
+
+
+def benches(torch) -> tuple[dict, list]:
+    """Phase 11: the ten benches of ``align3d_torch/benches`` with
+    ``--quick`` on the card, in this process, stdout captured: one JSON line
+    each under its JAX metric name with a finite positive value (the
+    scaling bench on one card: null, reason "one card", its world-1 step
+    timed); the launches each path issues; each bench's result bitwise the
+    same port call made directly (every series of bench 3, filter off and
+    on); bench 9's pose graph and BA within phase 8's card-against-CPU
+    tolerances of the direct calls (``index_add_`` adds by atomics)."""
+    import importlib
+
+    from align3d_torch.benches import BENCHES
+
+    out, failures = {"lines": {}, "seconds": {}, "result_bitwise_direct": {}}, []
+    for name in BENCHES:
+        mod = importlib.import_module(f"align3d_torch.benches.{name}")
+        t0 = time.perf_counter()
+        outcome, lines = captured(mod.run, BENCH_ARGV)
+        out["seconds"][name] = time.perf_counter() - t0
+        metric = getattr(mod, "METRIC", None) or mod.KERNEL_METRIC
+        parsed = [json.loads(line) for line in lines]
+        line = parsed[0] if len(parsed) == 1 else None
+        out["lines"][name] = line
+        if line is None or line.get("metric") != metric or line != outcome.line:
+            failures.append(f"11 {name}: stdout was not one JSON line under {metric}: {lines[:3]}")
+            continue
+        value = line["value"]
+        if name == "bench_scaling" and torch.cuda.device_count() < 2:
+            ok = value is None and line.get("reason") == "one card" and line["worlds"]["1"]["full_ms"] > 0
+        else:
+            ok = isinstance(value, float) and math.isfinite(value) and value > 0
+        if not ok:
+            failures.append(f"11 {name}: value {value!r}")
+        failures += bench_launch_failures(name, line)
+        direct = direct_results(torch, name, mod, line)
+        if name == "bench_global_refine":  # index_add_ adds by atomics on the card: no rerun is bitwise
+            gaps = {key: max_gap(torch, outcome.result[key], direct[key]) for key in direct}
+            out["global_refine_gap_direct"] = gaps
+            if not (gaps["pose_graph"] <= PG_CARD_CPU_ATOL and gaps["bundle_adjustment"] <= BA_CARD_CPU_ATOL):
+                failures.append(f"11 {name}: the bench's result is {gaps} from the port calls made directly, "
+                                f"beyond {PG_CARD_CPU_ATOL} (pose graph) or {BA_CARD_CPU_ATOL} (BA)")
+            continue
+        bitwise = same(torch, outcome.result, direct)
+        out["result_bitwise_direct"][name] = bitwise
+        if not bitwise:
+            failures.append(f"11 {name}: the bench's result differs from the port call made directly")
+    return out, failures
+
+
 def main() -> int:
     start = time.perf_counter()
 
@@ -2475,6 +2775,9 @@ def main() -> int:
         pose = result.trajectory.camera_to_world
         if not (torch.isfinite(pose.rotation).all() and torch.isfinite(pose.translation).all()):
             return fail(f"non-finite poses in the {name} run")
+    moved = reciprocal_division_move(torch, TransformMetrics, subset, builder, first)
+    print("division fix: the 10-frame odometry with the divisions by a number done as CUDA does them for a CPU "
+          "scalar (the float32 reciprocal, before the fix) against the divisions of this run: " + json.dumps(moved))
 
     done("phase 4a")
 
@@ -2572,7 +2875,9 @@ def main() -> int:
               f"{json.dumps(got.get('card_vs_cpu', 'not run (8-frame scene only)'))}; card rerun bitwise "
               f"{got['card_rerun_bitwise']}; host ms a render card {got['host_ms']:.2f}, CPU path "
               f"{got.get('cpu_host_ms', 'not run')}; device busy ms {got['device_busy_ms']:.3f} "
-              f"({got['device_activities']} activities); peak memory {got['peak_memory_bytes']} B")
+              f"({got['device_activities']} activities); peak memory {got['peak_memory_bytes']} B; the fit of "
+              f"every node {got['fit_host_ms']:.2f} ms, a render refitting every node "
+              f"{got['host_ms_fit_every_render']:.2f} ms")
     print(f"viz renderer alone, the CPU path's 8 clouds on the card: bitwise "
           f"{shown['dataset']['scene_8_frames_same_points_bitwise']}; the clouds built on the card against the CPU's: "
           f"{json.dumps(shown['dataset']['scene_8_frames_clouds'])}")
@@ -2585,6 +2890,18 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     done("phase 10")
+
+    # -- 11. the benches -----------------------------------------------------------
+    t11 = time.perf_counter()
+    benched, failures = benches(torch)
+    for name, line in benched["lines"].items():
+        print(f"bench {name}: {json.dumps(line)}")
+    print(f"benches: seconds {json.dumps(benched['seconds'])}; result bitwise the direct call "
+          f"{json.dumps(benched['result_bitwise_direct'])}; bench 9's gap to the direct calls "
+          f"{json.dumps(benched.get('global_refine_gap_direct'))}; phase 11 {time.perf_counter() - t11:.1f} s")
+    if failures:
+        return fail("; ".join(failures))
+    done("phase 11")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
@@ -2599,7 +2916,8 @@ def main() -> int:
                **{f"sequence parallel, filter on, world 2, rank {r['rank']} (9b)": r["sequence"]["launches"]
                   for r in distributed["world2"]["ranks"]},
                "odometry --show, 10 frames (10d)": shown["cli"]["odometry_show_launches"],
-               "viz": {"mesh": sum(m["k5_launches_two_renders"] for m in shown["meshes"].values())}}
+               "viz": {"mesh": sum(m["k5_launches_two_renders"] for m in shown["meshes"].values()),
+                       "sphere": sum(shown["dataset"][k]["k6_launches"] for k in ("preview_sample1", "scene_8_frames"))}}
 
     def paths(key):
         return {k: v[key] for k, v in by_path.items() if key in v}
@@ -2695,6 +3013,18 @@ def main() -> int:
          "library_ms": probes["p2_library_ms"], "library_call": "torch.gather of the same indices",
          "modes": {m: roof[f"p2_{m}"] for m in ("lane", "l2", "hbm")}},
     ]
+    # K6 replaces no TPU kernel: the JAX viewers fit with numpy on the host.
+    err6, (ms6, call_ms6), (_, plain_ms6), bound6, library6 = shown["dataset"]["k6"]
+    kernels.append({"name": "column_mean (K6)", "route": "cuda", "source": "align3d_torch/csrc/sphere.cu",
+                    "replaces": "align3d_tpu/viz/sphere.py:29", "pallas_calls": [],
+                    "replaces_note": "numpy's mean(axis=0) on the host in Sphere3D.from_points; no TPU kernel",
+                    "launches": by_path["viz"]["sphere"], "launches_by_path": paths("sphere"),
+                    "max_abs_err": err6, "err": "max |kernel - numpy| (bitwise on every node of the preview, one launch)",
+                    "ms": ms6, "call_ms": call_ms6, "plain_ms": plain_ms6,
+                    "plain": "numpy's mean(axis=0) of the points on the host: host ms, median of 3",
+                    "timed_calls": TIMED_CALLS, "nodes": len(shown["dataset"]["k6_node_points"]),
+                    "points": sum(shown["dataset"]["k6_node_points"]),
+                    "ptxas": ptxas["sphere"], **bound6, **library6})
     print(json.dumps({"roofline": roof}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

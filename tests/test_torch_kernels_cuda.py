@@ -378,8 +378,8 @@ def test_mesh_kernel_is_one_launch(cuda_device):
     pts, faces = _meshes()["grid320"]
     ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
     points = torch.from_numpy(pts).to(cuda_device)
-    ms, seen = device_ms(lambda: ev(points), 10, "mesh_normals")  # raises on any other activity
-    assert ms is not None and 1 <= seen <= 10
+    ms, acts = device_ms(lambda: ev(points), 10, "mesh_normals")  # raises on any other activity
+    assert ms is not None and 1 <= len(acts) <= 10
 
 
 def test_mesh_kernel_bitwise_3m_faces(cuda_device):
@@ -678,3 +678,90 @@ def test_viz_mesh_one_k5_launch_a_render(cuda_device):
     card, cpu = renders["cuda"], renders["cpu"]
     assert _renders_equal(card[0], card[1]) and _renders_equal(card[0], cpu[0])
     assert torch.isfinite(card[0].depth).sum() > 10000
+
+
+def test_divisions_by_a_number_on_the_card_bitwise_the_cpu(cuda_device):
+    """Where the port divides a tensor by a Python number, the card divides
+    as the CPU does (the CPU path is the one held bitwise to JAX): the
+    backprojections, the intensity map at all 256 u8 levels, the
+    small-angle branch of ``Transform.log``, and every frame's scene cloud."""
+    from align3d_torch.camera import CameraIntrinsics
+    from align3d_torch.io.datasets import SubsetDataset
+    from align3d_torch.ops.intensity import build_intensity_map
+    from align3d_torch.viz.viewers import RgbdDatasetViewer
+
+    cpu = torch.device("cpu")
+    cam = CameraIntrinsics(fx=544.47329, fy=544.47329, cx=320.0, cy=240.0, width=640, height=480)
+    frame = SlamTbDataset.load(str(RGBD / "sample1")).get(0)
+    depth = torch.from_numpy(frame.image.depth.astype(np.float32) * np.float32(frame.image.depth_scale))
+    assert torch.equal(cam.backproject_grid(depth.to(cuda_device)).cpu(), cam.backproject_grid(depth))
+    rng = np.random.default_rng(0)
+    u, v, z = (torch.from_numpy(rng.uniform(lo, hi, 100_000).astype(np.float32))
+               for lo, hi in ((0, 640), (0, 480), (0.3, 8.0)))
+    got = cam.backproject(u.to(cuda_device), v.to(cuda_device), z.to(cuda_device)).cpu()
+    assert torch.equal(got, cam.backproject(u, v, z))
+    levels = torch.arange(256, dtype=torch.uint8).reshape(16, 16)
+    assert torch.equal(build_intensity_map(levels.to(cuda_device)).cpu(), build_intensity_map(levels))
+    twists = torch.from_numpy(rng.normal(0, 1, (4096, 6)).astype(np.float32)) * torch.logspace(-7, -4, 4096)[:, None]
+    small = Transform.exp(twists)
+    assert bool((small.angle() < 1e-3).all())  # the log's small-angle branch: cos(theta) > 1 - 1e-6
+    card = Transform(small.rotation.to(cuda_device), small.translation.to(cuda_device))
+    assert torch.equal(card.log().cpu(), small.log())
+    scenes = []
+    for device in (cuda_device, cpu):
+        viewer = RgbdDatasetViewer(SubsetDataset(SlamTbDataset.load(str(RGBD / "sample1")), [0, 1]), 160, 120,
+                                   device=device)
+        viewer.build_scene()
+        scenes.append(torch.cat([n.points.cpu() for n in viewer.viewer.scene.nodes]))
+    assert torch.equal(scenes[0], scenes[1])
+
+
+def _sphere_points(n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    pts = (rng.normal(0, 1, (n, 3)) * [3.0, 0.5, 40.0] + [1e3, -2.0, 7.0]).astype(np.float32)
+    pts[0] = [-0.0, 0.0, -0.0] if n > 1 else pts[0]
+    return pts
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1024, 1025, 100_003, 2_100_000])
+def test_sphere_mean_kernel_bitwise_numpy(cuda_device, n):
+    """K6 is numpy's float32 mean along axis 0, bit for bit (rows added in
+    order from row 0, the sum divided by N in float64), one launch; and the
+    fitted sphere on the card is numpy's, centre and radius."""
+    from align3d_torch.viz import sphere
+
+    pts = _sphere_points(n)
+    before = sphere.MEAN_LAUNCHES
+    got = sphere.numpy_means(torch.from_numpy(pts).to(cuda_device), [n]).cpu().numpy()[0]
+    assert sphere.MEAN_LAUNCHES == before + 1
+    want = pts.mean(axis=0)
+    assert got.dtype == want.dtype and np.array_equal(got.view(np.int32), want.view(np.int32))
+    fit = sphere.Sphere3D.from_points(torch.from_numpy(pts).to(cuda_device))
+    ref = sphere.Sphere3D.from_points(pts)
+    assert np.array_equal(fit.center.view(np.int32), ref.center.view(np.int32)) and fit.radius == ref.radius
+
+
+def test_sphere_fit_many_is_one_launch(cuda_device):
+    """Many nodes' spheres fitted together: one K6 launch, each bitwise
+    numpy's fit of its own points (an empty set the empty sphere)."""
+    from align3d_torch.viz import sphere
+
+    sets = [_sphere_points(n) for n in (1, 3, 1025, 100_003, 262_144)]
+    before = sphere.MEAN_LAUNCHES
+    fits = sphere.Sphere3D.fit_many([torch.from_numpy(p).to(cuda_device) for p in sets]
+                                    + [torch.zeros((0, 3), device=cuda_device)])
+    assert sphere.MEAN_LAUNCHES == before + 1 and fits[-1].is_empty
+    for fit, pts in zip(fits, sets):
+        ref = sphere.Sphere3D.from_points(pts)
+        assert np.array_equal(fit.center.view(np.int32), ref.center.view(np.int32)) and fit.radius == ref.radius
+
+
+def test_sphere_mean_kernel_rejects_bad_inputs(cuda_device):
+    from align3d_torch.viz import sphere
+
+    with pytest.raises(ValueError):
+        sphere.numpy_means(torch.zeros((4, 3), dtype=torch.float64, device=cuda_device), [4])
+    with pytest.raises(ValueError):
+        sphere.numpy_means(torch.zeros((3, 4), device=cuda_device)[:, :3], [3])
+    with pytest.raises(ValueError):
+        sphere.numpy_means(torch.zeros((4, 3), device=cuda_device), [4, 0])
