@@ -29,6 +29,10 @@ PTXAS_LOG = "ptxas.log"  # the compiler's -Xptxas -v report of the library's bui
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# Flags of one source only. The banded ICP step rounds every product and sum
+# on its own, as its plain twin does, so that the association and the gates
+# decide as the twin's do.
+FILE_FLAGS = {"icp_banded.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +46,13 @@ _SIGNATURES = {
         _F, _F, _F, _F,  # fx, fy, cx, cy
         _F, _F, _F, _F,  # max_dist^2, max_angle, max_color^2, huber_delta
         _P, _I, _P, _P, _P,  # partials, blocks per pair, arrival counters, out, stream
+    ],
+    "a3d_icp_banded": [
+        _I, _P, _P, _P, _P, _P, _P, _P,  # variant, rot, trans, chunk_base, dy_base, dx_base, source, target
+        _I, _I, _I, _I, _I, _I,  # batch, nchunks, groups, h, w, band radius
+        _F, _F, _F, _F, _F, _F,  # fx, fy, cx, cy, f32(1/fx), f32(1/fy)
+        _F, _F, _F, _F,  # max_dist^2, f32(cos(max_angle)), max_color^2, huber_delta (0: off)
+        _P, _P, _P, _P, _P,  # partials, arrival counters, out, stats (or null), stream
     ],
     "a3d_bilateral_splat": [
         _P, _P, _I, _I, _I, _F,  # images, color_min per frame, batch, h, w, 1/sigma_color
@@ -75,7 +86,7 @@ def _sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(FILE_FLAGS.items()))).encode())
     for path in _sources():
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -107,7 +118,7 @@ def build(verbose: bool = False) -> Path:
         jobs = []
         for src in _sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(src.name, []), "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
             jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed, reports = [], []
         for obj, proc in jobs:

@@ -40,7 +40,7 @@ import time
 
 import torch
 
-from align3d_torch.ops import bilateral, icp_fused, mesh, nn_banded
+from align3d_torch.ops import bilateral, icp_fused, icp_pallas_v3, icp_pallas_v4, mesh, nn_banded
 from align3d_torch.viz import sphere
 
 #: The port's kernels on the benches' paths: the symbol the profiler shows
@@ -52,6 +52,8 @@ KERNELS = {
     "K4": ("nn_banded", [(nn_banded, "LAUNCHES")]),
     "K5": ("mesh_normals", [(mesh, "LAUNCHES")]),
     "K6": ("column_mean", [(sphere, "MEAN_LAUNCHES")]),
+    "K7": ("icp_banded_kernel<false>", [(icp_pallas_v3, "LAUNCHES")]),
+    "K8": ("icp_banded_kernel<true>", [(icp_pallas_v4, "LAUNCHES")]),
 }
 RUNS, WARMUP = 5, 2
 TO_UNIT = {"ms": 1.0, "us": 1e3, "s": 1e-3}  # from ms

@@ -4,14 +4,20 @@
     python -m align3d_torch.benches.bench_odometry [--device cpu] [--quick]
 
 Each call is one ``parallel/batch.py::odometry_step`` over a frame series
-(depth filter, 3-level pyramids, 3-level ICP at 30/20/20 iterations with
-``MsIcpParams.default()``, the prefix scan), timed with the bilateral filter
-off and then on (through per-frame-sized depth buckets). ms a frame is a
-step over its pairs. The series, in order:
+(depth filter, 3-level pyramids, 3-level ICP at 30/20/20 iterations, the
+prefix scan), timed with the bilateral filter off and then on (through
+per-frame-sized depth buckets). ms a frame is a step over its pairs. The
+ICP engine is the JAX bench's default, ``--engine pallas_v4``
+(``MsIcpParams.default_tpu("pallas_v4")``: K8 70 launches a step, band
+radius 2 at the coarsest level); ``--engine xla`` runs
+``MsIcpParams.default()`` (K1 70 launches a step). Unless the engine is
+``xla``, the exact engine's step on the real series, filter off, is timed
+too and printed beside (``xla_ms_per_frame``), so that the records taken
+with it compare. The series, in order:
 
 * the 65 real frames of ``tools/series.py::real_frames`` (sample1 forward,
-  back and wrapped: 64 pairs), the headline: K1 70 launches a step; with
-  the filter one K2 and one K3 launch a bucket;
+  back and wrapped: 64 pairs), the headline; with the filter one K2 and
+  one K3 launch a bucket;
 * the mixed sample1 + sample2 series (``mixed_frames``), whose depth spans
   need buckets of very different depth;
 * the JAX bench's synthetic slanted-plane series of ``ODO_NFRAMES`` (9)
@@ -90,6 +96,11 @@ def from_series(s: sr.Series) -> Frames:
     return Frames(s.colors, s.depths, s.camera, s.depth_scales)
 
 
+def engine_params(engine: str) -> MsIcpParams:
+    """The JAX bench's parameters of ``engine``."""
+    return MsIcpParams.default() if engine == "xla" else MsIcpParams.default_tpu(engine)
+
+
 def step(frames: Frames, inputs: tuple, params: MsIcpParams, filt, device):
     """One timed call: the batched odometry of the whole series."""
     colors, depths, scales = inputs
@@ -102,11 +113,12 @@ def run(argv=None) -> h.Outcome:
     ap.add_argument("--frames", type=int, default=sr.SERIES_FRAMES, help="frames of the real and mixed series")
     ap.add_argument("--synthetic-frames", type=int, default=int(os.environ.get("ODO_NFRAMES", "9")))
     ap.add_argument("--stride", type=int, default=1, help="keep every s-th pixel (a CPU run's size)")
+    ap.add_argument("--engine", choices=("xla", "pallas", "pallas_v4"), default="pallas_v4")
     args = h.parse(ap, argv)
     device = h.setup(args.device)
     if not config.has_ref_data():
         raise RuntimeError(f"the fixtures are missing under {config.REF_DATA_DIR} (tests/data/rgbd)")
-    params = MsIcpParams.default()
+    params = engine_params(args.engine)
     filt = BilateralFilter()
     all_series = {"real": from_series(sr.real_frames(args.frames)),
                   "mixed": from_series(sr.mixed_frames(args.frames)),
@@ -126,8 +138,17 @@ def run(argv=None) -> h.Outcome:
             timings[(name, label)] = timing
             h.describe(f"{name}, filter {label}, ms a frame", summaries[name][label], "ms")
     real_pairs = len(all_series["real"].depths) - 1
-    line = h.record(METRIC, "ms", timings[("real", "off")], device, units=real_pairs,
-                    bilateral_on=summaries["real"]["on"]["value"], series=summaries, stride=args.stride)
+    extra = {}
+    if args.engine != "xla":
+        frames = all_series["real"].cut(args.stride)
+        inputs = frames.on(device)
+        exact = MsIcpParams.default()
+        timing = h.measure(lambda: step(frames, inputs, exact, None, device), device, args)
+        timings[("real", "off", "xla")] = timing
+        extra = {"xla_ms_per_frame": timing.summary(real_pairs)["value"], "xla": timing.summary(real_pairs)}
+        h.describe("real, filter off, exact engine, ms a frame", extra["xla"], "ms")
+    line = h.record(METRIC, "ms", timings[("real", "off")], device, units=real_pairs, engine=args.engine,
+                    bilateral_on=summaries["real"]["on"]["value"], series=summaries, stride=args.stride, **extra)
     return h.Outcome(line, {key: t.result for key, t in timings.items()})
 
 

@@ -2,7 +2,7 @@
 ``align3d_tpu/cli.py``:
 
     python -m align3d_torch.cli odometry {slamtb,tum,ilrgbd} <dataset> [max_frames]
-        [--checkpoint PATH [--checkpoint-every N]] [--loop-closure] [--show PATH]
+        [--engine {xla,pallas,pallas_v4} [--coarse-exact]] [--checkpoint PATH [--checkpoint-every N]] [--loop-closure] [--show PATH]
     python -m align3d_torch.cli viewer {slamtb,tum,ilrgbd} <dataset> [-o PATH]
         [--max-frames N] [--animate | --interactive [--port P]]
 
@@ -50,7 +50,11 @@ def cmd_odometry(args) -> int:
     if args.max_frames is not None:
         dataset = SubsetDataset(loaded, range(min(args.max_frames, len(loaded))))
     builder = RangeImageBuilder(bilateral_filter=None if args.no_bilateral else BilateralFilter())
-    params = MsIcpParams.default() if args.engine == "xla" else MsIcpParams.default_tpu(args.engine)
+    params = (
+        MsIcpParams.default()
+        if args.engine == "xla"
+        else MsIcpParams.default_tpu(args.engine, coarse_exact=args.coarse_exact)
+    )
     try:
         result = run_odometry(
             dataset,
@@ -135,15 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--engine",
         choices=("xla", "pallas", "pallas_v4"),
         default="xla",
-        help="accepted for compatibility with align3d-tpu: every engine runs "
-        "the same fused GN step (CUDA kernel on the GPU, plain PyTorch on the CPU)",
+        help="ICP engine: exact association (xla; CUDA kernel K1), or the banded "
+        "association of the fused kernels: v3 (pallas, f32 pack; K7) or v4 (pallas_v4, "
+        "slim int pack + bf16 reduction; K8). The banded engines associate within a "
+        "tracked displacement band (radius 2 at the coarsest level), adequate for "
+        "ordinary frame-to-frame motion; for fast motion (several degrees/frame) add "
+        "--coarse-exact",
     )
     p_odo.add_argument(
         "--coarse-exact",
         action="store_true",
-        help="accepted for compatibility with align3d-tpu, where it keeps exact "
-        "association at the coarsest level of a pallas engine: the port "
-        "associates exactly at every level, so it changes nothing",
+        help="with a pallas engine: keep the exact association at the coarsest "
+        "pyramid level (handles arbitrary displacement; the finer levels stay on "
+        "the banded kernel)",
     )
     p_odo.add_argument(
         "--loop-closure",

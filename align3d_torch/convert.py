@@ -5,8 +5,6 @@ the card unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -82,11 +80,9 @@ def range_image_from_numpy(
 
 
 def icp_params_from_dict(params: dict) -> IcpParams:
-    """``dataclasses.asdict(jax_params)`` -> IcpParams. Keys the port has no
-    field for (the TPU engines' ``band_radius``) are dropped: they select
-    nothing on the port."""
-    names = {f.name for f in dataclasses.fields(IcpParams)}
-    return IcpParams(**{k: v for k, v in params.items() if k in names})
+    """``dataclasses.asdict(jax_params)`` -> IcpParams, every field (the
+    banded engines' ``band_radius`` included)."""
+    return IcpParams(**params)
 
 
 def ms_icp_params_from_dicts(levels: list[dict]) -> MsIcpParams:

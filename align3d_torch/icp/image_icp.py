@@ -1,15 +1,22 @@
 """Projective RGB-D ICP, point-to-plane + photometric (port of ``align3d_tpu/icp/image_icp.py``).
 
-:func:`icp_step`, the plain GN accumulation over all source pixels, lives
-beside its fused CUDA kernel in :mod:`align3d_torch.ops.icp_fused` and is
-re-exported here. :func:`align_impl_batched` runs the GN loop of B frame
-pairs at once: per iteration one fused step over all B pairs (one launch of
-K1 on the card), then the batched float64 6x6 solve, the SE(3) update and
-the best-residual select, all on the device, with no wait for it.
-:func:`align_impl` is its batch of one, and :func:`align_batched` its
-counterpart of the JAX package's ``align_batched``. The TPU engine's band
-prediction (``predict_bases_centroid_batched``) has no counterpart: K1
-gathers the target at the exact projected pixel.
+Three engines, picked by ``IcpParams.engine`` as in the JAX package
+(:func:`align_dispatch`, :class:`ImageIcp`, :func:`align_batched`):
+
+* ``"xla"``: the exact association. :func:`icp_step`, the plain GN
+  accumulation over all source pixels, lives beside its fused CUDA kernel K1
+  in :mod:`align3d_torch.ops.icp_fused` and is re-exported here.
+  :func:`align_impl_batched` runs the GN loop of B frame pairs at once: per
+  iteration one fused step over all B pairs (one launch of K1 on the card),
+  then the batched float64 6x6 solve, the SE(3) update and the best-residual
+  select, all on the device, with no wait for it. :func:`align_impl` is its
+  batch of one.
+* ``"pallas"`` and ``"pallas_v4"``: the banded association of the TPU
+  engines (K7, :mod:`align3d_torch.ops.icp_pallas_v3`; K8,
+  :mod:`align3d_torch.ops.icp_pallas_v4`). Each iteration re-predicts the
+  bands from the current pose (one projected source centroid per 16-row
+  chunk and 128-column group) and runs one kernel launch over all B pairs;
+  the loop is the exact engine's.
 
 Reference semantics kept exactly (``src/icp/image_icp.rs``), as in the JAX
 package:
@@ -17,7 +24,8 @@ package:
 * the target lookup at ``trunc(u + 0.5)`` with bounds and target-mask gates;
 * the distance gate ``||q - p||^2 > max_distance^2`` rejects;
 * the normal-angle gate compares the transformed source *point* with the
-  target normal, ``|acos(p . n)|``, and a NaN angle passes;
+  target normal, ``|acos(p . n)|``, and a NaN angle passes (the banded
+  engines compare ``p . n`` with ``f32(cos(angle))`` instead);
 * the photometric term samples at clamped coordinates, with ``0.003921569``
   for 1/255 and the re-truncated +0.005 numeric gradient;
 * the returned pose is the best-mean-squared-residual one, where the
@@ -32,6 +40,8 @@ import torch
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp.params import IcpParams
 from align3d_torch.ops import icp_fused
+from align3d_torch.ops import icp_pallas_v3 as k3
+from align3d_torch.ops import icp_pallas_v4 as k4
 from align3d_torch.ops.icp_fused import _f32, icp_step  # noqa: F401  (icp_step is re-exported)
 from align3d_torch.ops.target_pack import pack_geometry
 from align3d_torch.optim.gauss_newton import GNSystem
@@ -58,8 +68,8 @@ def prepack_batched(
     target_normals: torch.Tensor,  # (B, N, 3)
     target_intensity_map: torch.Tensor,  # (B, H+2, W+2)
 ) -> tuple:
-    """The pose-independent inputs of the fused step for B pairs (the
-    counterpart of ``prepack_v4_batched``): the sources as K1 reads them,
+    """The pose-independent inputs of the exact step for B pairs (the
+    exact engine's counterpart of :func:`prepack_v4_batched`): the sources as K1 reads them,
     with their ``uint8`` masks, the targets' geometry pack and their bordered
     intensity maps (K1 reads its taps there). Returns ``(points, mask,
     intensity, geo, intensity_map, h, w)``."""
@@ -79,24 +89,16 @@ def prepack_batched(
     )
 
 
-def align_impl_batched(
-    initial_rotation: torch.Tensor,  # (B, 3, 3)
-    initial_translation: torch.Tensor,  # (B, 3)
-    packed: tuple,  # from prepack_batched
-    intrinsics: CameraIntrinsics,
-    params: IcpParams,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GN loop of B pairs on prepacked inputs (the counterpart of
-    ``align_impl_pallas_v4_batched_packed``); returns (best_R, best_t,
-    best_residual), (B, 3, 3), (B, 3), (B,), on the inputs' device."""
-    points, mask, intensity, geo, intensity_map, h, w = packed
+def _gn_loop(step, initial_rotation, initial_translation, params: IcpParams):
+    """The GN loop of B pairs: ``step(rot, trans)`` gives the (geometric,
+    colour) 8x8 blocks, (B, 8, 8) each; returns (best_R, best_t,
+    best_residual)."""
     weight, color_weight = _f32(params.weight), _f32(params.color_weight)
     rot, trans = initial_rotation, initial_translation
     best_res = torch.full(rot.shape[:1], torch.inf, dtype=torch.float32, device=rot.device)
     best_rot, best_trans = rot, trans
     for _ in range(params.max_iterations):
-        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics, params)
-        geom, color = _gn_from_aug16(aug[:, 0], aug[:, 1])
+        geom, color = _gn_from_aug16(*step(rot, trans))
         merged = geom.add_weighted(color, weight, color_weight)
         residual = merged.mean_squared_residual()
         new_transform = Transform.exp(merged.solve()) @ Transform(rot, trans)
@@ -109,26 +111,171 @@ def align_impl_batched(
     return best_rot, best_trans, best_res
 
 
-def align_impl(
-    initial_rotation: torch.Tensor,
-    initial_translation: torch.Tensor,
-    source_points: torch.Tensor,
-    source_mask: torch.Tensor,
-    source_intensity: torch.Tensor,
-    target_points: torch.Tensor,
-    target_mask: torch.Tensor,
-    target_normals: torch.Tensor,
-    target_intensity_map: torch.Tensor,
+def align_impl_batched(
+    initial_rotation: torch.Tensor,  # (B, 3, 3)
+    initial_translation: torch.Tensor,  # (B, 3)
+    packed: tuple,  # from prepack_batched
     intrinsics: CameraIntrinsics,
     params: IcpParams,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full ICP align of one pair: :func:`align_impl_batched` with B = 1."""
-    packed = prepack_batched(
-        source_points[None], source_mask[None], source_intensity[None],
-        target_points[None], target_mask[None], target_normals[None], target_intensity_map[None],
-    )
-    rot, trans, res = align_impl_batched(initial_rotation[None], initial_translation[None], packed, intrinsics, params)
-    return rot[0], trans[0], res[0]
+    """GN loop of B pairs on prepacked inputs, exact engine; returns
+    (best_R, best_t, best_residual), (B, 3, 3), (B, 3), (B,), on the inputs'
+    device."""
+    points, mask, intensity, geo, intensity_map, h, w = packed
+
+    def step(rot, trans):
+        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics,
+                                       params)
+        return aug[:, 0], aug[:, 1]
+
+    return _gn_loop(step, initial_rotation, initial_translation, params)
+
+
+def _prepack_banded(pack_target, source_points, source_mask, source_intensity, target_points, target_mask,
+                    target_normals, target_intensity_map, intrinsics):
+    bsz = target_intensity_map.shape[0]
+    h, w = target_intensity_map.shape[-2] - 2, target_intensity_map.shape[-1] - 2
+    sp = k3.pack_source(source_points.reshape(bsz, h, w, 3), source_mask.reshape(bsz, h, w),
+                        source_intensity.reshape(bsz, h, w))
+    tp = pack_target(target_points.reshape(bsz, h, w, 3), target_normals.reshape(bsz, h, w, 3),
+                     target_mask.reshape(bsz, h, w), target_intensity_map)
+    return sp, tp, k3.source_centroids_batched(sp, intrinsics), h, w
+
+
+def prepack_v3_batched(source_points, source_mask, source_intensity, target_points, target_mask, target_normals,
+                       target_intensity_map, intrinsics: CameraIntrinsics):
+    """The pose-independent inputs of the ``"pallas"`` engine for B pairs
+    ((B, N, ...) flattened levels, (B, H+2, W+2) maps): the source packs,
+    K7's float32 target packs and the source centroids. Returns ``(sp, tp,
+    centroids, h, w)`` for :func:`align_impl_pallas_v3_batched_packed`."""
+    return _prepack_banded(k3.pack_target, source_points, source_mask, source_intensity, target_points,
+                           target_mask, target_normals, target_intensity_map, intrinsics)
+
+
+def prepack_v4_batched(source_points, source_mask, source_intensity, target_points, target_mask, target_normals,
+                       target_intensity_map, intrinsics: CameraIntrinsics):
+    """:func:`prepack_v3_batched` with K8's 5-channel int32 target packs."""
+    return _prepack_banded(k4.pack_target, source_points, source_mask, source_intensity, target_points,
+                           target_mask, target_normals, target_intensity_map, intrinsics)
+
+
+def _banded_packed(step_fn, initial_rotation, initial_translation, sp, tp, centroids, intrinsics, h, w, params):
+    hp = sp.shape[1] * k3.CHUNK
+    pt = k3.params_to_tuple(params)
+
+    def step(rot, trans):
+        cb, dyb, dxb = k3.predict_bases_centroid_batched(rot, trans, centroids, intrinsics, hp)
+        return step_fn(rot, trans, cb, dyb, dxb, sp, tp, intrinsics, h, w, pt)[:2]
+
+    return _gn_loop(step, initial_rotation, initial_translation, params)
+
+
+def align_impl_pallas_v3_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
+                                        intrinsics: CameraIntrinsics, h: int, w: int, params: IcpParams):
+    """GN loop of the ``"pallas"`` engine over B prepacked pairs: per
+    iteration the bands predicted from the current poses, one launch of K7
+    (no stats), the solve and the update. Returns (best_R, best_t,
+    best_residual)."""
+
+    def step_fn(*args):
+        return k3.icp_step_pallas_batched(*args, emit_stats=False)
+
+    return _banded_packed(step_fn, initial_rotation, initial_translation, sp, tp, centroids, intrinsics, h, w,
+                          params)
+
+
+def align_impl_pallas_v4_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
+                                        intrinsics: CameraIntrinsics, h: int, w: int, params: IcpParams):
+    """:func:`align_impl_pallas_v3_batched_packed` with K8 (the ``"pallas_v4"``
+    engine; ``bench.py``'s timed region)."""
+    return _banded_packed(k4.icp_step_pallas_batched, initial_rotation, initial_translation, sp, tp, centroids,
+                          intrinsics, h, w, params)
+
+
+def align_impl_pallas_v3_batched(initial_rotation, initial_translation, source_points, source_mask,
+                                 source_intensity, target_points, target_mask, target_normals, target_intensity_map,
+                                 intrinsics: CameraIntrinsics, params: IcpParams):
+    """Batched ``"pallas"`` align: :func:`prepack_v3_batched`, then the GN loop."""
+    sp, tp, centroids, h, w = prepack_v3_batched(source_points, source_mask, source_intensity, target_points,
+                                                 target_mask, target_normals, target_intensity_map, intrinsics)
+    return align_impl_pallas_v3_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
+                                               intrinsics, h, w, params)
+
+
+def align_impl_pallas_v4_batched(initial_rotation, initial_translation, source_points, source_mask,
+                                 source_intensity, target_points, target_mask, target_normals, target_intensity_map,
+                                 intrinsics: CameraIntrinsics, params: IcpParams):
+    """Batched ``"pallas_v4"`` align: :func:`prepack_v4_batched`, then the GN loop."""
+    sp, tp, centroids, h, w = prepack_v4_batched(source_points, source_mask, source_intensity, target_points,
+                                                 target_mask, target_normals, target_intensity_map, intrinsics)
+    return align_impl_pallas_v4_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
+                                               intrinsics, h, w, params)
+
+
+def _single(batched):
+    def single(initial_rotation, initial_translation, *pair_and_rest):
+        *pair, intrinsics, params = pair_and_rest
+        rot, trans, res = batched(initial_rotation[None], initial_translation[None], *(t[None] for t in pair),
+                                  intrinsics, params)
+        return rot[0], trans[0], res[0]
+
+    return single
+
+
+def align_impl_pallas_v3(initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                         target_points, target_mask, target_normals, target_intensity_map,
+                         intrinsics: CameraIntrinsics, params: IcpParams):
+    """Single-pair ``"pallas"`` align (a batch of one)."""
+    return _single(align_impl_pallas_v3_batched)(
+        initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+        target_mask, target_normals, target_intensity_map, intrinsics, params)
+
+
+def align_impl_pallas_v4(initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                         target_points, target_mask, target_normals, target_intensity_map,
+                         intrinsics: CameraIntrinsics, params: IcpParams):
+    """Single-pair ``"pallas_v4"`` align (a batch of one)."""
+    return _single(align_impl_pallas_v4_batched)(
+        initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+        target_mask, target_normals, target_intensity_map, intrinsics, params)
+
+
+def _exact_batched(initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                             target_points, target_mask, target_normals, target_intensity_map,
+                             intrinsics: CameraIntrinsics, params: IcpParams):
+    """Batched exact align: :func:`prepack_batched`, then the GN loop."""
+    packed = prepack_batched(source_points, source_mask, source_intensity, target_points, target_mask,
+                             target_normals, target_intensity_map)
+    return align_impl_batched(initial_rotation, initial_translation, packed, intrinsics, params)
+
+
+def align_impl(initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+               target_mask, target_normals, target_intensity_map, intrinsics: CameraIntrinsics,
+               params: IcpParams):
+    """Full ICP align of one pair, exact engine (a batch of one)."""
+    return _single(_exact_batched)(
+        initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+        target_mask, target_normals, target_intensity_map, intrinsics, params)
+
+
+_ENGINES = {"xla": align_impl, "pallas": align_impl_pallas_v3, "pallas_v4": align_impl_pallas_v4}
+_BATCHED = {"xla": _exact_batched, "pallas": align_impl_pallas_v3_batched,
+            "pallas_v4": align_impl_pallas_v4_batched}
+
+
+def _engine(table: dict, params: IcpParams):
+    if params.engine not in table:
+        raise ValueError(f"unknown ICP engine {params.engine!r}; expected one of {sorted(table)}")
+    return table[params.engine]
+
+
+def align_dispatch(initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                   target_points, target_mask, target_normals, target_intensity_map,
+                   intrinsics: CameraIntrinsics, params: IcpParams):
+    """The single-pair align of ``params.engine``."""
+    return _engine(_ENGINES, params)(
+        initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+        target_mask, target_normals, target_intensity_map, intrinsics, params)
 
 
 def align_batched(
@@ -143,12 +290,12 @@ def align_batched(
     intrinsics: CameraIntrinsics,
     params: IcpParams,
 ) -> tuple[Transform, torch.Tensor]:
-    """Align B frame pairs at once (the throughput configuration); returns
-    the best poses (B,) and their mean squared residuals (B,)."""
-    packed = prepack_batched(
-        source_points, source_mask, source_intensity, target_points, target_mask, target_normals, target_intensity_map
-    )
-    rot, trans, res = align_impl_batched(initial.rotation, initial.translation, packed, intrinsics, params)
+    """Align B frame pairs at once (the throughput configuration) with
+    ``params.engine``; returns the best poses (B,) and their mean squared
+    residuals (B,)."""
+    rot, trans, res = _engine(_BATCHED, params)(
+        initial.rotation, initial.translation, source_points, source_mask, source_intensity, target_points,
+        target_mask, target_normals, target_intensity_map, intrinsics, params)
     return Transform(rot, trans), res
 
 
@@ -170,7 +317,7 @@ class ImageIcp:
             raise ValueError("the source image should have intensity colors")
         t = self.target
         n = t.height * t.width
-        best_rot, best_trans, best_res = align_impl(
+        best_rot, best_trans, best_res = align_dispatch(
             self.initial_transform.rotation,
             self.initial_transform.translation,
             source.points.reshape(-1, 3),

@@ -1,4 +1,5 @@
-"""Coarse-to-fine multiscale ICP (port of ``align3d_tpu/icp/multiscale.py``)."""
+"""Coarse-to-fine multiscale ICP (port of ``align3d_tpu/icp/multiscale.py``).
+Each level aligns on its own ``IcpParams.engine`` (:class:`ImageIcp`)."""
 
 from __future__ import annotations
 

@@ -13,11 +13,15 @@ from typing import Callable, Iterator
 class IcpParams:
     """Per-level knobs (icp_params.rs:8-43).
 
-    ``engine`` is kept so command lines carry over from the JAX package
-    unchanged. On the port every engine name runs the same GN step: the
-    fused CUDA kernel on a CUDA tensor (exact association at the projected
-    pixel, which the TPU's banded engines approximate inside their band),
-    its plain-PyTorch twin on the CPU.
+    ``engine`` picks the GN step, as in the JAX package: ``"xla"`` associates
+    exactly at the projected pixel (kernel K1, ``ops/icp_fused.py``);
+    ``"pallas"`` and ``"pallas_v4"`` associate inside a predicted band of
+    ``2 * band_radius + 1`` candidate rows and two lane groups per 16-row
+    chunk and 128-column group, dropping the pixels whose correspondence
+    falls outside it (kernels K7 and K8, ``ops/icp_pallas_v3.py`` and
+    ``ops/icp_pallas_v4.py``; v4 also rounds normals and its reduction stack
+    to bf16). Each runs its CUDA kernel on a CUDA tensor and its plain
+    PyTorch twin on a CPU tensor.
     """
 
     max_iterations: int = 15
@@ -29,6 +33,8 @@ class IcpParams:
     max_color_distance: float = 0.25
     huber_delta: float | None = None  # Huber IRLS weighting; off by default
     engine: str = "xla"
+    # Banded engines only: the candidate-row radius around the predicted row.
+    band_radius: int = 1
 
     def replace(self, **kw) -> "IcpParams":
         return dataclasses.replace(self, **kw)
@@ -65,10 +71,21 @@ class MsIcpParams:
         )
 
     @classmethod
-    def default_tpu(cls, engine: str = "pallas") -> "MsIcpParams":
-        """The defaults with ``engine`` at every level. On the port it
-        computes what :meth:`default` computes (see :class:`IcpParams`)."""
-        return cls.default().customize(lambda i, p: p.replace(engine=engine))
+    def default_tpu(cls, engine: str = "pallas", coarse_exact: bool = False) -> "MsIcpParams":
+        """The defaults with a banded engine (``"pallas"`` or ``"pallas_v4"``)
+        at every level. The coarsest level takes the bulk inter-frame motion,
+        so its band radius is 2; the finer levels keep 1. A banded level
+        drops correspondences beyond its band, so for fast motion
+        ``coarse_exact=True`` keeps the exact engine (``"xla"``) at the
+        coarsest level and the banded one on the finer levels."""
+        base = cls.default()
+        n = len(base)
+        return base.customize(
+            lambda i, p: p.replace(
+                engine="xla" if (coarse_exact and i == n - 1) else engine,
+                band_radius=2 if i == n - 1 else 1,
+            )
+        )
 
     def __len__(self) -> int:
         return len(self.pyramid)

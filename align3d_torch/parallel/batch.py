@@ -5,8 +5,9 @@ Every per-frame stage takes a leading frame axis, written out where the JAX
 package ``vmap``s: the bilateral filter runs one splat and one slice launch
 per depth bucket, the pyramids are built for all frames at once, and each
 Gauss-Newton iteration of the multiscale align is one launch of the fused
-step (K1) over all pairs, followed by the batched solve and update on the
-device. :func:`odometry_step` is the whole pipeline for N consecutive
+step over all pairs (the level's engine: K1 exact, K7 ``"pallas"`` or K8
+``"pallas_v4"`` banded, as the JAX package routes each level), followed by
+the batched solve and update on the device. :func:`odometry_step` is the whole pipeline for N consecutive
 frames: N - 1 adjacent pairs aligned at once, their relative poses composed
 by a parallel prefix scan. It waits for the device once, to plan the
 bilateral filter's depth buckets, and otherwise not until the caller reads
@@ -94,9 +95,10 @@ def multiscale_align_batched(
     params: MsIcpParams,
     initial: Transform | None = None,
 ) -> Transform:
-    """Coarse-to-fine multiscale ICP of B pairs at once; the pyramids are
-    lists (fine -> coarse) of batched RangeImages with a shared leading pair
-    axis. Returns the relative poses, a batched Transform (B,)."""
+    """Coarse-to-fine multiscale ICP of B pairs at once, each level on its
+    own engine (``align_batched``); the pyramids are lists (fine -> coarse)
+    of batched RangeImages with a shared leading pair axis. Returns the
+    relative poses, a batched Transform (B,)."""
     b = target_pyramid[0].points.shape[0]
     pose = initial if initial is not None else Transform.identity((b,), device=target_pyramid[0].device)
     for level_params, target, source in reversed(list(zip(params, target_pyramid, source_pyramid))):

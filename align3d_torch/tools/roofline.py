@@ -382,6 +382,33 @@ def icp_step_bytes(mask: torch.Tensor, h: int, w: int) -> int:
     return mask.numel() + valid * (12 + 1 + ICP_GEO_BYTES) + mask.shape[0] * per_pair
 
 
+#: Float operations of one source pixel in the banded step (K7/K8): ~150 to
+#: project, associate, gate and form the 16 stack channels, and the 128
+#: products and sums of the two 8x8 blocks.
+BANDED_FLOPS_PER_PIXEL = 150 + 2 * 128
+
+
+def banded_step_bytes(source_pack: torch.Tensor, target_pack: torch.Tensor, emit_stats: bool = False) -> int:
+    """Bytes the banded GN step (K7 or K8) needs for B pairs, each input
+    byte once and each output byte once: the (B, nchunks, 2, K, 128)
+    source packs, the (B, G, C, Hp, 128) target packs (C = 7 float32 for
+    K7, 5 int32 for K8), the int32 band bases (a chunk base and G row and
+    column bases a chunk), the poses, the (B, 2, 8, 8) blocks and, with
+    ``emit_stats``, K7's (B, nchunks, 3, G, 8, 128) stats. A 640x480 pair:
+    2,457,600 + 8,601,600 (K7) or 6,144,000 (K8) bytes and a few hundred
+    more."""
+    b, nchunks, _, k, _ = source_pack.shape
+    g = k // 16
+    bases = b * nchunks * (1 + 2 * g) * 4
+    out = b * 2 * 64 * 4 + (b * nchunks * 3 * g * 8 * 128 * 4 if emit_stats else 0)
+    return source_pack.nbytes + target_pack.nbytes + bases + b * 12 * 4 + out
+
+
+def banded_step_flops(source_pack: torch.Tensor) -> int:
+    """Float operations of the banded step over every source pixel of the packs."""
+    return source_pack[:, :, 0].numel() * BANDED_FLOPS_PER_PIXEL
+
+
 def kernel_sections(device, batch: int = 64, reps: int = 20) -> dict:
     """K1 at ``batch`` distinct real pairs, 640x480, identity poses: ms per launch."""
     from align3d_torch.icp.image_icp import prepack_batched

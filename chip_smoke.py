@@ -165,13 +165,31 @@ Run from the root of a checkout. Phases, each of which fails the run:
     captured: exactly one JSON line under its JAX metric name, with a
     finite positive value (``bench_scaling`` on one card: null with the
     reason "one card", its world-1 step timed); the launches a call each
-    bench's line reports against what its path issues (K1 10 an align at
-    B = 64 and 10 a kernel-only call, 70 an ``odometry_step``, K2 and K3
-    one a bucket with the filter and one a ``filter_static``, K4 10 a pcl
-    align and one a nearest search, K5 one a call); each bench's result
-    bitwise the same port call made here on the same inputs (the global
-    refinement bench excepted: ``index_add_`` adds by atomics); each line
-    printed as ``bench <module>: {...}``.
+    bench's line reports against what its path issues (K8 10 an align at
+    B = 64 and K1 10 beside it, K7 10 a kernel-only call and 10 a full
+    align and K1 10 each beside them, K8 70 an ``odometry_step`` and K1 70
+    beside it, K2 and K3 one a bucket with the filter and one a
+    ``filter_static``, K4 10 a pcl align and one a nearest search, K5 one a
+    call); each bench's result bitwise the same port call made here on the
+    same inputs (the global refinement bench excepted: ``index_add_`` adds
+    by atomics); each line printed as ``bench <module>: {...}``.
+12. The banded engines (``engine="pallas"`` / ``"pallas_v4"``), printed as
+    one ``banded:`` JSON line:
+    a. K7 (with stats) and K8 against their plain twins on the card at
+       640x480: sample1 frames 0 <- 1 (B = 1, level 0, at phase 3's twist)
+       and the 64 real pairs (B = 64), the bands predicted from the source
+       centroids: gate counts equal, H, g and sum w r^2 within ICP_REL, K7's
+       stats bitwise; each pair's blocks at B = 64 bitwise its B = 1
+       blocks; device ms a launch (every activity a launch of the kernel)
+       and per-call ms of both, the twin's, the bound (tools/roofline.py
+       ``banded_step_bytes``), and the band prediction's host ms;
+    b. ``run_odometry`` on sample1, filter on: 31 frames with
+       ``default_tpu("pallas_v4")`` (K8 70 launches a pair, K1 and K7 none)
+       against the JAX package's golden trajectory of that engine within
+       POSE_ATOL; 10 frames with ``default_tpu("pallas_v4",
+       coarse_exact=True)`` (K8 40 a pair, K1 30) and with
+       ``default_tpu("pallas", coarse_exact=True)`` (K7 40 a pair, K1 30);
+       each against ground truth, finite, and its host ms a frame.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -194,6 +212,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SAMPLE1 = ROOT / "tests" / "data" / "rgbd" / "sample1"
 GOLDEN = ROOT / "tests" / "data" / "golden" / "sample1_bilateral_10.tum"
+GOLDEN_V4 = ROOT / "tests" / "data" / "golden" / "sample1_bilateral_pallas_v4_31.tum"
+BANDED_FRAMES, BANDED_CUT = 31, 10  # 12b: the pallas_v4 golden's frames; the coarse_exact runs'
 FRAMES = 10
 DEVICE = "cuda"
 
@@ -246,15 +266,18 @@ PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 #: Kernel names in csrc/, by the wrapper that launches them (K3's two forms
 #: are instantiations of one template).
 KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",),
-                "mesh": ("mesh_normals",), "sphere": ("column_mean",)}
+                "mesh": ("mesh_normals",), "sphere": ("column_mean",),
+                "banded": ("icp_banded_kernel<false>", "icp_banded_kernel<true>")}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
-PALLAS_CALLS = {"K1": ["align3d_tpu/ops/icp_pallas_v4.py:508", "align3d_tpu/ops/icp_pallas_v3.py:761"],
-                "K2": ["align3d_tpu/ops/bilateral.py:171"], "K3": ["align3d_tpu/ops/bilateral.py:598"],
+PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
+                "K8": ["align3d_tpu/ops/icp_pallas_v4.py:508"], "K2": ["align3d_tpu/ops/bilateral.py:171"],
+                "K3": ["align3d_tpu/ops/bilateral.py:598"],
                 "K4": ["align3d_tpu/ops/nn_banded.py:370", "align3d_tpu/ops/nn_banded.py:459"],
                 "K5": ["align3d_tpu/ops/mesh.py:356"], "P1": ["tools/roofline_v4.py:68"],
                 "P2": ["tools/roofline_v4.py:118"]}
-PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded"}
+PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded",
+               "banded": "icp_banded_kernel"}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -2496,15 +2519,22 @@ def direct_results(torch, name: str, mod, line: dict):
     from align3d_torch.icp.params import IcpParams, MsIcpParams
     from align3d_torch.tools import series
 
-    if name == "bench_image_icp":
+    if name == "bench_image_icp":  # bench.py's engine, and the exact one beside it
         sources, targets = series.real_pairs(64, DEVICE)
-        return mod.align(mod.packed_pairs(sources, targets), sources.intrinsics, IcpParams(max_iterations=10))
-    if name == "bench_icp_kernel":
+        return {engine: mod.align(mod.packed_pairs(sources, targets, engine), sources.intrinsics,
+                                  IcpParams(max_iterations=10, engine=engine)) for engine in ("pallas_v4", "xla")}
+    if name == "bench_icp_kernel":  # K7 at radius 2, and the exact engine beside it
+        from align3d_torch.benches.bench_image_icp import align
+
         sources, targets = mod.synthetic_pairs(8, DEVICE)
-        packed = mod.packed_pairs(sources, targets)
-        params = IcpParams(max_iterations=10)
-        return {"kernel_only": mod.kernel_steps(packed, sources.intrinsics, params),
-                "full_align": mod.align(packed, sources.intrinsics, params)}
+        params = IcpParams(max_iterations=10, engine="pallas", band_radius=2)
+        exact = params.replace(engine="xla")
+        packed = mod.packed_pairs(sources, targets, "xla")
+        return {"kernel_only": mod.kernel_steps(mod.packed_pairs(sources, targets, "pallas"), sources.intrinsics,
+                                                params),
+                "full_align": mod.full_align(sources, targets, params),
+                "xla_kernel_only": mod.exact_kernel_steps(packed, sources.intrinsics, exact),
+                "xla_full_align": align(packed, sources.intrinsics, exact)}
     if name == "bench_odometry":
         from align3d_torch.ops.bilateral import BilateralFilter
         from align3d_torch.parallel import batch as pb
@@ -2517,8 +2547,12 @@ def direct_results(torch, name: str, mod, line: dict):
             if isinstance(scales, np.ndarray):
                 scales = torch.from_numpy(scales).to(DEVICE)
             for label, f in (("off", None), ("on", BilateralFilter())):
-                out[(key, label)] = pb.odometry_step(s.camera, scales, colors, depths, MsIcpParams.default(),
-                                                     bilateral_filter=f, device=DEVICE).camera_to_world
+                out[(key, label)] = pb.odometry_step(s.camera, scales, colors, depths,
+                                                     MsIcpParams.default_tpu("pallas_v4"), bilateral_filter=f,
+                                                     device=DEVICE).camera_to_world
+            if key == "real":  # the exact engine beside the JAX bench's default
+                out[(key, "off", "xla")] = pb.odometry_step(s.camera, scales, colors, depths, MsIcpParams.default(),
+                                                            device=DEVICE).camera_to_world
         return out
     if name == "bench_pcl_icp":
         from align3d_torch.icp.pcl_icp import Icp
@@ -2573,16 +2607,21 @@ def direct_results(torch, name: str, mod, line: dict):
 def bench_launch_failures(name: str, line: dict) -> list:
     """The launches a bench's line reports against what its path issues,
     and the profiler's count beside them (reported, not gated)."""
-    want = {"bench_image_icp": {"K1": 10}, "bench_icp_kernel": {"K1": 10}, "bench_pcl_icp": {"K4": 10},
+    want = {"bench_image_icp": {"K8": 10}, "bench_icp_kernel": {"K7": 10}, "bench_pcl_icp": {"K4": 10},
             "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1}, "bench_bilateral": {"K2": 1, "K3": 1},
-            "bench_odometry": {"K1": STEP_ITERATIONS}, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
+            "bench_odometry": {"K8": STEP_ITERATIONS}, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
     checks = [("line", line, want)]
+    if name == "bench_image_icp":
+        checks.append(("xla", line["xla"], {"K1": 10}))
     if name == "bench_icp_kernel":
-        checks.append(("full_align", line["full_align"], {"K1": 10}))
+        checks += [("full_align", line["full_align"], {"K7": 10}),
+                   ("xla_full_align", line["xla_full_align"], {"K1": 10}),
+                   ("xla_kernel_only", line["xla_kernel_only"], {"K1": 10})]
     if name == "bench_odometry":
+        checks.append(("xla", line["xla"], {"K1": STEP_ITERATIONS}))
         for key in ("real", "mixed", "synthetic"):
             on = line["series"][key]["on"]
-            checks.append((f"{key} filter on", on, {"K1": STEP_ITERATIONS, "K2": on["buckets"], "K3": on["buckets"]}))
+            checks.append((f"{key} filter on", on, {"K8": STEP_ITERATIONS, "K2": on["buckets"], "K3": on["buckets"]}))
     out = []
     for label, summary, kernels in checks:
         if summary.get("launches") is None:  # the scaling bench's spawned worlds count none
@@ -2640,6 +2679,145 @@ def benches(torch) -> tuple[dict, list]:
         out["result_bitwise_direct"][name] = bitwise
         if not bitwise:
             failures.append(f"11 {name}: the bench's result differs from the port call made directly")
+    return out, failures
+
+# -- phase 12: the banded engines --------------------------------------------------
+
+
+def banded_args(torch, k3, mod, sources, targets, pose, params):
+    """K7/K8 arguments for the batched level-0 images ``sources`` /
+    ``targets`` at ``pose`` (one pose for every pair), the bands predicted
+    from the source centroids; and the band prediction's host ms."""
+    h, w = targets.height, targets.width
+    b = sources.points.numel() // (h * w * 3)  # a batched image or one frame's
+    sp = k3.pack_source(sources.points.reshape(b, h, w, 3), sources.mask.reshape(b, h, w),
+                        sources.intensities.reshape(b, h, w))
+    tp = mod.pack_target(targets.points.reshape(b, h, w, 3), targets.normals.reshape(b, h, w, 3),
+                         targets.mask.reshape(b, h, w), targets.intensity_map.reshape(b, h + 2, w + 2))
+    rot = pose.rotation.expand(b, 3, 3).contiguous()
+    trans = pose.translation.expand(b, 3).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centroids = k3.source_centroids_batched(sp, targets.intrinsics)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bases = k3.predict_bases_centroid_batched(rot, trans, centroids, targets.intrinsics, sp.shape[1] * k3.CHUNK)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    host = {"source_centroids_ms": (t1 - t0) * 1e3, "predict_bases_centroid_ms": (t2 - t1) * 1e3}
+    return (rot, trans, *bases, sp, tp, targets.intrinsics, h, w, k3.params_to_tuple(params)), host
+
+
+def check_banded(torch, label, kernel, plain, args, stats: bool, timed_plain: int):
+    """Hold K7 or K8 against its twin on ``args``: counts equal, H, g and
+    sum w r^2 within ICP_REL (check_icp_blocks), K7's stats bitwise, a rerun
+    bitwise; then time both. Returns (worst relative error, kernel timings,
+    twin timings, blocks)."""
+    got, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    blocks, ref_blocks = torch.stack(got[:2], dim=1), torch.stack(ref[:2], dim=1)
+    mask = (args[5][:, :, 0] > 0).reshape(args[5].shape[0], -1)
+    worst = check_icp_blocks(torch, blocks, ref_blocks, mask, label)
+    if not torch.equal(blocks[:, :, 7, 7], ref_blocks[:, :, 7, 7]):
+        raise AssertionError(f"{label}: the gate counts differ from the twin's")
+    if stats and not torch.equal(got[2], ref[2]):
+        raise AssertionError(f"{label}: the stats differ from the twin's")
+    again = kernel(*args)
+    if not all(torch.equal(a, b) for a, b in zip(again, got) if a is not None):
+        raise AssertionError(f"{label} is not deterministic")
+    name = KERNEL_NAMES["banded"][1 if "K8" in label else 0]
+    timing = timings(torch, lambda: kernel(*args), kernel=name)
+    plain_timing = timings(torch, lambda: plain(*args), n=timed_plain, profiled=1)
+    return worst, timing, plain_timing, blocks
+
+
+def banded_odometry(torch, dataset, builder, counters, frames: int, params, want: dict) -> dict:
+    """``run_odometry`` on the first ``frames`` sample1 frames with
+    ``params``; the launch counts against ``want`` (a pair's), ground truth,
+    finite poses."""
+    from align3d_torch.io.datasets import SubsetDataset
+    from align3d_torch.odometry import run_odometry
+
+    subset = SubsetDataset(dataset, range(frames))
+    reset_counts(counters)
+    result = run_odometry(subset, DEVICE, range_builder=builder, icp_params=params)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    expected = {k: want.get(k, 0) * (frames - 1) for k in launches}
+    pose = result.trajectory.camera_to_world
+    out = {"frames": frames, "launches": launches, "launches_expected": expected,
+           "mean_deg": math.degrees(float(result.metrics.angle)), "mean_trans": float(result.metrics.translation),
+           "host_ms_per_frame": result.seconds_per_frame * 1e3,
+           "finite": bool(torch.isfinite(pose.rotation).all() and torch.isfinite(pose.translation).all())}
+    if launches != expected:
+        raise AssertionError(f"banded odometry launched {launches}, expected {expected}")
+    if not (out["finite"] and out["mean_deg"] < MEAN_ANGLE_DEG and out["mean_trans"] < MEAN_TRANS):
+        raise AssertionError(f"banded odometry failed its ground-truth bound or is not finite: {out}")
+    return out, result
+
+
+def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
+    """Phase 12 (module docstring)."""
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.metrics import TransformMetrics
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools.roofline import banded_step_bytes, banded_step_flops
+    from align3d_torch.tools.series import real_pairs
+    from align3d_torch.trajectory import Trajectory
+
+    t_phase = time.perf_counter()
+    out, failures = {}, []
+    params = MsIcpParams.default_tpu("pallas")[0]  # the finest level: band radius 1
+    pose = Transform.exp(torch.tensor(K1_TWIST, device=DEVICE))
+    one = (builder.build(dataset.get(1), DEVICE)[0], builder.build(dataset.get(0), DEVICE)[0])
+    sources64, targets64 = real_pairs(64, DEVICE)
+    variants = {"K7": (k3, lambda *a: k3.icp_step_pallas_batched(*a, emit_stats=True),
+                       lambda *a: k3.icp_step_plain(*a, emit_stats=True), True),
+                "K8": (k4, k4.icp_step_pallas_batched, k4.icp_step_plain, False)}
+    for key, (mod, kernel, plain, stats) in variants.items():
+        res = {}
+        for shape, (src, tgt), timed_plain in (("batch1", one, TIMED_CALLS), ("batch64", (sources64, targets64), 3)):
+            args, host = banded_args(torch, k3, mod, src, tgt, pose, params)
+            worst, timing, plain_timing, blocks = check_banded(torch, f"{key} {shape}", kernel, plain, args, stats,
+                                                               timed_plain)
+            b = bound(banded_step_bytes(args[5], args[6], stats), banded_step_flops(args[5]))
+            res[shape] = {"max_abs_err": worst, "ms": timing[0], "call_ms": timing[1], "plain_ms": plain_timing[0],
+                          "plain_call_ms": plain_timing[1], **b, **host, "pairs": args[0].shape[0],
+                          "library_ms": None,
+                          "library_reason": "no PyTorch call does the banded association and its gated GN sums"}
+            if shape == "batch64":
+                singles = [kernel(*(a[i:i + 1] for a in args[:7]), *args[7:]) for i in range(args[0].shape[0])]
+                res[shape]["bitwise_b1"] = all(torch.equal(torch.stack(s[:2], dim=1)[0], blocks[i])
+                                               for i, s in enumerate(singles))
+                if not res[shape]["bitwise_b1"]:
+                    failures.append(f"12a {key}: a pair's blocks at B = 64 differ from its B = 1 blocks")
+            print(f"banded {key} {shape}: {json.dumps(res[shape])}")
+        out[key] = res
+    del sources64, targets64
+
+    golden = Trajectory.from_tum(GOLDEN_V4.read_text()).to(DEVICE)
+    runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"), {"k8": 70}),
+            ("pallas_v4_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas_v4", coarse_exact=True),
+             {"k8": 40, "icp": 30}),
+            ("pallas_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas", coarse_exact=True),
+             {"k7": 40, "icp": 30}))
+    for name, frames, ms_params, want in runs:
+        try:
+            got, result = banded_odometry(torch, dataset, builder, counters, frames, ms_params, want)
+        except AssertionError as exc:
+            failures.append(f"12b {name}: {exc}")
+            continue
+        if name == "pallas_v4":
+            diff = TransformMetrics.new(golden.camera_to_world, result.trajectory.camera_to_world)
+            got["golden_max_rad"], got["golden_max_m"] = float(diff.angle.max()), float(diff.translation.max())
+            if not (len(golden) == len(result.trajectory) and got["golden_max_rad"] <= POSE_ATOL
+                    and got["golden_max_m"] <= POSE_ATOL):
+                failures.append(f"12b: the pallas_v4 trajectory differs from the JAX golden: {got}")
+        out[name] = got
+        print(f"banded odometry {name}: {json.dumps(got)}")
+    out["phase_s"] = time.perf_counter() - t_phase
     return out, failures
 
 
@@ -2902,6 +3080,19 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     done("phase 11")
+
+    # -- 12. the banded engines --------------------------------------------------
+    from align3d_torch.ops import icp_pallas_v3, icp_pallas_v4
+
+    banded_counters = {"icp": (icp_fused, "LAUNCHES"), "k7": (icp_pallas_v3, "LAUNCHES"),
+                       "k8": (icp_pallas_v4, "LAUNCHES")}
+    banded_out, failures = banded(torch, dataset, builder, banded_counters)
+    print("banded: " + json.dumps(banded_out))
+    if failures:
+        return fail("; ".join(failures))
+    launches["k7"] = banded_out["pallas_coarse_exact"]["launches"]["k7"]
+    launches["k8"] = banded_out["pallas_v4"]["launches"]["k8"]
+    done("phase 12")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
                "throughput, bilateral off (4d)": throughput["bilateral_off"]["launches"],
@@ -2916,6 +3107,8 @@ def main() -> int:
                **{f"sequence parallel, filter on, world 2, rank {r['rank']} (9b)": r["sequence"]["launches"]
                   for r in distributed["world2"]["ranks"]},
                "odometry --show, 10 frames (10d)": shown["cli"]["odometry_show_launches"],
+               **{f"banded odometry {name}, {banded_out[name]['frames']} frames (12b)": banded_out[name]["launches"]
+                  for name in ("pallas_v4", "pallas_v4_coarse_exact", "pallas_coarse_exact")},
                "viz": {"mesh": sum(m["k5_launches_two_renders"] for m in shown["meshes"].values()),
                        "sphere": sum(shown["dataset"][k]["k6_launches"] for k in ("preview_sample1", "scene_8_frames"))}}
 
@@ -2937,13 +3130,31 @@ def main() -> int:
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
                 "plain_call_ms": plain_call_ms, **bnd, **lib}
 
+    def banded_entry(key):
+        got, b1 = banded_out[key], banded_out[key]["batch1"]
+        return {"name": f"icp_banded {'v3' if key == 'K7' else 'v4'} ({key})", "route": "cuda",
+                "source": "align3d_torch/csrc/icp_banded.cu",
+                "replaces": {"K7": "align3d_tpu/ops/icp_pallas_v3.py:337",
+                             "K8": "align3d_tpu/ops/icp_pallas_v4.py:96"}[key],
+                "pallas_calls": PALLAS_CALLS[key], "launches": launches[key.lower()],
+                "launches_by_path": paths(key.lower()), "max_abs_err": b1["max_abs_err"],
+                "err": "max |kernel - plain| / max|plain| over H, g and sum w r^2 (gate counts equal"
+                       + (", stats bitwise)" if key == "K7" else ")"),
+                "ms": b1["ms"], "plain_ms": b1["plain_ms"], "call_ms": b1["call_ms"],
+                "plain_call_ms": b1["plain_call_ms"], "timed_calls": TIMED_CALLS,
+                **{k: b1[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_flops", "library_ms",
+                                      "library_reason")},
+                "shape": "sample1 frames 0 <- 1, 640x480, level 0" + (", stats emitted" if key == "K7" else ""),
+                "ptxas": ptxas["banded"], "shapes": {"batch64_real_pairs": got["batch64"]}}
+
     k1_64 = roof["k1_batch64"]
     frames = batched_bil["batch"]
     gh, gw = bil._grid_dims(480, 640, bil.BilateralFilter.sigma_space)
 
     kernels = [
-        entry("icp_step_fused (K1)", "align3d_torch/csrc/icp_step.cu", "align3d_tpu/ops/icp_pallas_v4.py:96",
+        entry("icp_step_fused (K1)", "align3d_torch/csrc/icp_step.cu", "align3d_tpu/icp/image_icp.py:54",
               "icp", icp, "max |kernel - plain| / max|plain| over H, g and sum w r^2", ptxas=ptxas["icp"],
+              replaces_note="the XLA engine's exact GN step (plain jnp icp_step); no TPU kernel",
               launches_by_path=paths("icp"),
               shapes={"batch64_real_pairs": {
                   "ms": k1_64["ms"], "us_per_pair": k1_64["us_per_pair"],
@@ -2951,6 +3162,7 @@ def main() -> int:
                   "plain_ms": throughput["k1_batch64_plain_ms"],
                   "max_abs_err": throughput["k1_batch64_max_rel_err_plain"],
                   **bound(k1_64["bytes"], 300 * k1_64["gathers"] / 2)}}),
+        *(banded_entry(key) for key in ("K7", "K8")),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",
               "splat", splat, "max |kernel - plain|", ptxas=ptxas["splat"],
               launches_by_path=paths("splat"),

@@ -90,6 +90,41 @@ def test_missing_flags_are_the_queued_ones(monkeypatch, capsys):
     assert _flags(made[0], "viewer") | {"--device"} == _flags(cli.build_parser(), "viewer")
 
 
+class _Ran(Exception):
+    """Raised by the stand-in for run_odometry, with the params it got."""
+
+
+@pytest.mark.parametrize("flags", [[], ["--engine", "pallas"], ["--engine", "pallas_v4", "--coarse-exact"],
+                                   ["--engine", "pallas", "--coarse-exact"], ["--engine", "xla", "--coarse-exact"]],
+                         ids=lambda f: " ".join(f) or "defaults")
+def test_engine_and_coarse_exact_pick_jaxs_params(monkeypatch, flags):
+    """``--engine`` and ``--coarse-exact`` make the MsIcpParams JAX's command
+    makes: a banded engine on every level, the band radius 2 at the
+    coarsest, and with ``--coarse-exact`` the exact engine ("xla") there."""
+    import dataclasses
+
+    from align3d_tpu import odometry as jax_odometry
+
+    from align3d_torch import odometry
+
+    def stand_in(*args, icp_params=None, **kwargs):
+        raise _Ran(icp_params)
+
+    monkeypatch.setattr(odometry, "run_odometry", stand_in)
+    monkeypatch.setattr(jax_odometry, "run_odometry", stand_in)
+    argv = ["odometry", "slamtb", SAMPLE1, "2", "--no-bilateral", *flags]
+    with pytest.raises(_Ran) as ours:
+        cli.main([*argv, "--device", "cpu"])
+    with pytest.raises(_Ran) as theirs:
+        jax_cli.main(argv)
+    ours, theirs = ours.value.args[0], theirs.value.args[0]
+    assert [dataclasses.asdict(p) for p in ours] == [dataclasses.asdict(p) for p in theirs]
+    engine = flags[1] if flags else "xla"
+    coarse = "xla" if "--coarse-exact" in flags else engine
+    assert [p.engine for p in ours] == [engine, engine, coarse]
+    assert [p.band_radius for p in ours] == ([1, 1, 1] if engine == "xla" else [1, 1, 2])
+
+
 @pytest.mark.parametrize("value", ["0", "-2"])
 def test_checkpoint_every_below_one_is_refused_by_both(monkeypatch, capsys, value):
     argv = ["odometry", "slamtb", SAMPLE1, "--checkpoint-every", value]

@@ -68,11 +68,12 @@ def _flat(ri):
 
 @pytest.mark.parametrize("engine", ["pallas", "pallas_v4"])
 def test_params_carry_over_from_jax(engine):
-    """Every field the port has comes over unchanged; the TPU engines'
-    band radius has no field on the port and is dropped."""
+    """Every field comes over unchanged, the banded engines' band radius
+    too: radius 2 at the coarsest level, 1 on the finer ones."""
     jax_ms = JaxMsIcpParams.default_tpu(engine)
     ours = convert.ms_icp_params_from_dicts([dataclasses.asdict(p) for p in jax_ms])
     assert ours == MsIcpParams.default_tpu(engine)
+    assert [p.band_radius for p in ours] == [p.band_radius for p in jax_ms] == [1, 1, 2]
 
 
 @pytest.mark.parametrize("huber", [None, 0.004])

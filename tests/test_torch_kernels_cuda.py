@@ -18,6 +18,8 @@ from align3d_torch.io import read_off
 from align3d_torch.io.datasets import SlamTbDataset
 from align3d_torch.ops import bilateral as bil
 from align3d_torch.ops import icp_fused, mesh, nn_banded
+from align3d_torch.ops import icp_pallas_v3 as k3
+from align3d_torch.ops import icp_pallas_v4 as k4
 from align3d_torch.ops.target_pack import pack_geometry
 from align3d_torch.range_image import RangeImageBuilder
 from align3d_torch.se3 import Transform
@@ -572,6 +574,92 @@ def test_icp_step_kernel_rearms_across_batch_sizes(cuda_device):
     torch.cuda.synchronize()
     assert all(torch.equal(got, first) for runs in outs.values() for got in runs)
     assert all(not icp_fused._ARRIVALS[(rot.device, s.cuda_stream)].any() for s in streams)
+
+
+# -- K7, K8: the banded GN step ----------------------------------------------------
+
+BANDED = {"v3": (k3, lambda *a: k3.icp_step_pallas_batched(*a, emit_stats=True)), "v4": (k4, k4.icp_step_pallas_batched)}
+
+
+def _banded_args(mod, tgt, src, pose, params, bsz=1):
+    """Packs, poses and bases of ``bsz`` copies of one pair (or B pairs when
+    the range images are batched) for K7/K8 at ``pose``."""
+    lead = tgt.points.shape[:-3]
+    b = lead[0] if lead else 1
+    h, w = tgt.height, tgt.width
+    sp = k3.pack_source(src.points.reshape(b, h, w, 3), src.mask.reshape(b, h, w),
+                        src.intensities.reshape(b, h, w))
+    tp = mod.pack_target(tgt.points.reshape(b, h, w, 3), tgt.normals.reshape(b, h, w, 3),
+                         tgt.mask.reshape(b, h, w), tgt.intensity_map.reshape(b, h + 2, w + 2))
+    if bsz > b:
+        sp, tp = sp.expand(bsz, *sp.shape[1:]).contiguous(), tp.expand(bsz, *tp.shape[1:]).contiguous()
+    rot = pose.rotation.expand(bsz, 3, 3).contiguous()
+    trans = pose.translation.expand(bsz, 3).contiguous()
+    bases = k3.predict_bases_centroid_batched(rot, trans, k3.source_centroids_batched(sp, tgt.intrinsics),
+                                              tgt.intrinsics, sp.shape[1] * k3.CHUNK)
+    return (rot, trans, *bases, sp, tp, tgt.intrinsics, h, w, k3.params_to_tuple(params))
+
+
+@pytest.mark.parametrize("huber", [None, 0.004])
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("variant", ["v3", "v4"])
+def test_banded_kernel_matches_plain(pyramids, cuda_device, variant, level, huber):
+    """K7/K8 against their twins on the card, at the default_tpu level's band
+    radius: the per-pixel arithmetic is the twin's (no contraction), so the
+    gate counts are equal and K7's stats bitwise; H, g and sum w r^2 (sums in
+    another order) within 1e-4 x max|entry|."""
+    mod, step = BANDED[variant]
+    tgt, src = pyramids[0][level], pyramids[1][level]
+    params = MsIcpParams.default_tpu("pallas")[level].replace(huber_delta=huber)
+    pose = Transform.exp(torch.tensor([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], device=cuda_device))
+    args = _banded_args(mod, tgt, src, pose, params)
+    before = mod.LAUNCHES
+    got = step(*args)
+    assert mod.LAUNCHES == before + 1
+    ref = mod.icp_step_plain(*args, **({"emit_stats": True} if variant == "v3" else {}))
+    for g, r in zip(got[:2], ref[:2]):
+        g, r = g[0], r[0]
+        count_gap = abs(float(g[7, 7]) - float(r[7, 7]))
+        assert count_gap == 0.0 if huber is None else count_gap <= 1e-4 * float(r[7, 7])
+        assert float((g[:6, :6] - r[:6, :6]).abs().max()) <= 1e-4 * float(r[:6, :6].abs().max())
+        assert float((g[:6, 6] - r[:6, 6]).abs().max()) <= 1e-4 * float(r[:6, 6].abs().max())
+        assert abs(float(g[6, 6]) - float(r[6, 6])) <= 1e-4 * float(r[6, 6])
+    if variant == "v3":
+        assert torch.equal(got[2], ref[2])
+    # No float atomics: a rerun is bitwise identical.
+    again = step(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again[:2], got[:2]))
+
+
+@pytest.mark.parametrize("variant", ["v3", "v4"])
+def test_banded_kernel_batch64_bitwise_against_single(cuda_device, variant):
+    """K7/K8 at B = 64 real pairs, each pair's blocks bitwise its B = 1
+    blocks; then launched back to back at B = 64, 1, 3, 64, each call bitwise
+    the first (the last block of each pair re-arms its counter)."""
+    from align3d_torch.tools.series import real_pairs
+
+    mod, step = BANDED[variant]
+    sources, targets = real_pairs(64, cuda_device)
+    pose = Transform.exp(torch.tensor([0.004, -0.002, 0.003, 0.002, -0.003, 0.001], device=cuda_device))
+    args = _banded_args(mod, targets, sources, pose, MsIcpParams.default_tpu("pallas")[0], 64)
+    batched = step(*args)
+    for b in range(64):
+        one = step(*(a[b:b + 1] for a in args[:7]), *args[7:])
+        assert all(torch.equal(o[0], x[b]) for o, x in zip(one, batched)), b
+    for b in (64, 1, 3, 64):
+        got = step(*(a[:b] for a in args[:7]), *args[7:])
+        assert all(torch.equal(o, x[:b]) for o, x in zip(got, batched)), b
+    torch.cuda.synchronize()
+    assert not icp_fused._ARRIVALS[(args[0].device, torch.cuda.current_stream().cuda_stream)].any()
+
+
+def test_banded_kernels_reject_bad_inputs(pyramids, cuda_device):
+    tgt, src = pyramids[0][0], pyramids[1][0]
+    args = _banded_args(k4, tgt, src, Transform.identity(device=cuda_device), MsIcpParams.default_tpu()[0])
+    with pytest.raises(ValueError):
+        k3.icp_step_pallas_batched(*args)  # K8's int32 pack handed to K7
+    with pytest.raises(ValueError):
+        k4.icp_step_pallas_batched(*args[:5], args[5][:, :, :, :-1].contiguous(), *args[6:])
 
 
 # -- P1, P2: the roofline probes ------------------------------------------------------

@@ -13,17 +13,11 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 JAX, PORT = ROOT / "align3d_tpu", ROOT / "align3d_torch"
 
-# ROADMAP "Deliberately left unported": the Pallas engines and their align
-# variants, the TPU-only solve, the pytree hooks.
-UNPORTED_MODULES = {"ops/icp_pallas_v3.py", "ops/icp_pallas_v4.py"}
-UNPORTED_NAMES = {
-    "icp/image_icp.py": {
-        "align_dispatch", "align_impl_pallas_v3", "align_impl_pallas_v3_batched",
-        "align_impl_pallas_v3_batched_packed", "align_impl_pallas_v4", "align_impl_pallas_v4_batched",
-        "align_impl_pallas_v4_batched_packed", "prepack_v3_batched", "prepack_v4_batched",
-    },
-    "optim/gauss_newton.py": {"solve_spd"},
-}
+# ROADMAP "Deliberately left unported": the TPU-only solve and the pytree
+# hooks. The banded engines (ops/icp_pallas_v3.py, ops/icp_pallas_v4.py and
+# their align variants) are ported.
+UNPORTED_MODULES = set()
+UNPORTED_NAMES = {"optim/gauss_newton.py": {"solve_spd"}}
 PYTREE = {"tree_flatten", "tree_unflatten"}
 
 # ROADMAP Queue 1: every module is ported.
