@@ -54,6 +54,7 @@ HALO = 8  # extra target rows on each side of the chunk's predicted band
 BAND = CHUNK + 2 * HALO
 DY_RADIUS = 1  # default candidate-row radius around the predicted row
 NCH = 7  # packed target channels
+BLOCKS_PER_TILE = 2  # csrc/icp_banded.cu's blocks a (chunk, group) tile: partials per tile
 
 #: Launches of K7 since the last reset (set it to 0 to reset).
 LAUNCHES = 0
@@ -504,10 +505,11 @@ def icp_step_plain(rotation, translation, chunk_base, dy_base, dx_base, source_p
 
 def launch(variant: int, rotation, translation, chunk_base, dy_base, dx_base, source_pack, target_pack,
            intrinsics: CameraIntrinsics, h: int, w: int, params_tuple: tuple, emit_stats: bool, nch: int,
-           pack_dtype: torch.dtype):
+           pack_dtype: torch.dtype, entry=None):
     """One launch of ``csrc/icp_banded.cu`` over B pairs: ``variant`` 0 is
     K7 (float32 pack), 1 is K8 (int32 pack, bf16 stack). Returns (geo, col,
-    stats or None)."""
+    stats or None). ``entry``: another build's ``a3d_icp_banded`` (the
+    ablation tool's); the library's by default."""
     dev = rotation.device
     bsz, nchunks, _, k, _ = source_pack.shape
     g = k // CHUNK
@@ -525,11 +527,11 @@ def launch(variant: int, rotation, translation, chunk_base, dy_base, dx_base, so
     c = step_constants(params_tuple)
     tiles = nchunks * g
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partials = torch.empty((bsz, tiles, 128), dtype=f32, device=dev)
+    partials = torch.empty((bsz, tiles * BLOCKS_PER_TILE, 128), dtype=f32, device=dev)
     arrivals = _arrivals(dev, stream, bsz)  # shared with K1: launches on a stream run in order
     out = torch.empty((bsz, 2, 8, 8), dtype=f32, device=dev)
     stats = torch.empty((bsz, nchunks, 3, g, 8, 128), dtype=f32, device=dev) if emit_stats else None
-    status = _kernels.lib().a3d_icp_banded(
+    status = (entry or _kernels.lib().a3d_icp_banded)(
         variant, rotation.data_ptr(), translation.data_ptr(), chunk_base.data_ptr(), dy_base.data_ptr(),
         dx_base.data_ptr(), source_pack.data_ptr(), target_pack.data_ptr(),
         bsz, nchunks, g, h, w, c["radius"],

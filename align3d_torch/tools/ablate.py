@@ -62,6 +62,16 @@ line), each made in this one process, so that their times compare:
   twin of a table of sector sums) and timed in the l2 and hbm modes of
   ``tools/roofline.py``, in order and then in reverse; gathers/s and the
   share of the hbm bound at 32 bytes a gather.
+* **K7's and K8's split** (``banded_sections``). ``csrc/icp_banded.cu`` is
+  built with ``-DA3D_BANDED_SKIP_REDUCE=1`` (no reduction of the stack: its
+  bits are xor-ed into one word that a store depends on, so all that feeds
+  the stack is still computed; the sums are zeros), ``-DA3D_BANDED_SKIP_GATHER=1``
+  (no target gather: opaque words in place of the loads), both, and
+  neither (``BANDED_VARIANTS``); the full build is held bitwise against the
+  library's kernel. Each is timed at 640x480, level 0, on the first real
+  pair (B = 1) and on the 64 real pairs (B = 64), in order and then back;
+  ``reduce_ms`` and ``gather_ms`` are what the reduction and the gathers
+  add to the full build, beside the bound.
 
 Each time is given twice: device ms per call from ``torch.profiler``
 (``tools/roofline.py::device_ms``), and ms per call of back-to-back calls
@@ -90,7 +100,8 @@ MESH_BUFFERED = [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P]
 
 
 def build_variants(source: str, variants: dict[str, dict[str, int]], entries) -> dict[str, ctypes.CDLL]:
-    """``csrc/<source>`` built once per variant, each with its -D macros, all
+    """``csrc/<source>`` built once per variant, each with its -D macros and
+    the library's own flags for that file (``_kernels.FILE_FLAGS``), all
     ``nvcc`` started together; name -> the loaded library with the entry
     points ``entries(name)`` (entry name -> argtypes) typed."""
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -98,7 +109,8 @@ def build_variants(source: str, variants: dict[str, dict[str, int]], entries) ->
     jobs = {}
     for name, defines in variants.items():
         out = BUILD / f"lib{stem}_{name}.so"
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", *(f"-D{k}={v}" for k, v in defines.items()),
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *_kernels.FILE_FLAGS.get(source, []), "-shared",
+               *(f"-D{k}={v}" for k, v in defines.items()),
                "-o", str(out), str(_kernels._CSRC / source)]
         jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
@@ -505,9 +517,90 @@ def table_gather(device) -> dict:
     return out
 
 
+#: ``icp_banded.cu``'s builds for the split of K7's and K8's time: the
+#: library's, without the stack's reduction, without the target gathers, and
+#: without both.
+BANDED_VARIANTS = {"full": {}, "no_reduce": {"A3D_BANDED_SKIP_REDUCE": 1},
+                   "no_gather": {"A3D_BANDED_SKIP_GATHER": 1},
+                   "neither": {"A3D_BANDED_SKIP_REDUCE": 1, "A3D_BANDED_SKIP_GATHER": 1}}
+BANDED_TWIST = [0.004, -0.002, 0.003, 0.002, -0.003, 0.001]  # the pose the steps are taken at (chip_smoke's)
+
+
+def banded_inputs(device, batch: int = 64) -> dict:
+    """K7's and K8's arguments at 640x480, level 0 (``default_tpu``'s band
+    radius there), pose ``BANDED_TWIST``, the bands predicted from the source
+    centroids: "batch64", the ``batch`` real pairs, and "batch1", the first of
+    them (sample1 frames 0 <- 1). Keys "K7" / "K8" -> shape -> arguments."""
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(batch, device)
+    h, w = targets.height, targets.width
+    pose = Transform.exp(torch.tensor(BANDED_TWIST, device=device))
+    rot = pose.rotation.expand(batch, 3, 3).contiguous()
+    trans = pose.translation.expand(batch, 3).contiguous()
+    sp = k3.pack_source(sources.points.reshape(batch, h, w, 3), sources.mask.reshape(batch, h, w),
+                        sources.intensities.reshape(batch, h, w))
+    bases = k3.predict_bases_centroid_batched(rot, trans, k3.source_centroids_batched(sp, targets.intrinsics),
+                                              targets.intrinsics, sp.shape[1] * k3.CHUNK)
+    params = k3.params_to_tuple(MsIcpParams.default_tpu("pallas")[0])
+    out = {}
+    for key, mod in (("K7", k3), ("K8", k4)):
+        tp = mod.pack_target(targets.points.reshape(batch, h, w, 3), targets.normals.reshape(batch, h, w, 3),
+                             targets.mask.reshape(batch, h, w), targets.intensity_map.reshape(batch, h + 2, w + 2))
+        full = (rot, trans, *bases, sp, tp)
+        out[key] = {"batch1": (*(a[:1].contiguous() for a in full), targets.intrinsics, h, w, params),
+                    "batch64": (*full, targets.intrinsics, h, w, params)}
+    return out
+
+
+def banded_sections(device) -> dict:
+    """K7 and K8 built with and without the stack's reduction and the target
+    gathers (``BANDED_VARIANTS``): device ms of each at 640x480, B = 1 and
+    B = 64, in the order of ``BANDED_VARIANTS`` and back; the full build held
+    bitwise against the library's kernel; the bound and its share."""
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.tools import roofline as rl
+
+    libs = build_variants("icp_banded.cu", BANDED_VARIANTS,
+                          lambda _: {"a3d_icp_banded": _kernels._SIGNATURES["a3d_icp_banded"]})
+    kinds = {"K7": (0, True, k3.NCH, torch.float32, k3.icp_step_pallas_batched),
+             "K8": (1, False, k4.NCH, torch.int32, k4.icp_step_pallas_batched)}
+    out = {}
+    for key, shapes in banded_inputs(device).items():
+        variant, stats, nch, dtype, wrapper = kinds[key]
+        out[key] = {}
+        for shape, args in shapes.items():
+            def call(name, args=args):
+                return k3.launch(variant, *args, stats, nch, dtype, entry=libs[name].a3d_icp_banded)
+
+            lib_out = wrapper(*args, **({"emit_stats": True} if stats else {}))
+            full = call("full")
+            if not all(torch.equal(a, b) for a, b in zip(full, lib_out) if a is not None):
+                raise AssertionError(f"{key} {shape}: the ablation's full build differs from the library's kernel")
+            nbytes = rl.banded_step_bytes(args[5], args[6], stats)
+            bound_ms = max(nbytes / rl.PEAK_HBM_BYTES, rl.banded_step_flops(args[5]) / rl.PEAK_F32_FLOPS) * 1e3
+            row = {"pairs": args[0].shape[0], "bound_ms": bound_ms, "bound_bytes": nbytes}
+            order, calls = list(BANDED_VARIANTS), CALLS["frame"] if shape == "batch1" else CALLS["series"]
+            for name in order + order[::-1]:
+                row.setdefault(f"{name}_ms", []).append(
+                    rl.device_ms(lambda name=name: call(name), calls, "icp_banded_kernel")[0])
+            mean = {name: sum(row[f"{name}_ms"]) / 2 for name in order}
+            row["share_of_bound"] = bound_ms / mean["full"]
+            row["reduce_ms"] = mean["full"] - mean["no_reduce"]  # what the stack's reduction adds
+            row["gather_ms"] = mean["full"] - mean["no_gather"]  # what the target gathers add
+            out[key][shape] = row
+        del shapes
+    return out
+
+
 SECTIONS = {"splat_exact": splat_exact, "tap_packs": tap_packs, "slice_composition": slice_composition,
             "slice_pixels": slice_pixels, "mesh_designs": mesh_designs, "mesh_host": mesh_host,
-            "table_gather": table_gather}
+            "table_gather": table_gather, "banded_sections": banded_sections}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -189,7 +189,12 @@ Run from the root of a checkout. Phases, each of which fails the run:
        POSE_ATOL; 10 frames with ``default_tpu("pallas_v4",
        coarse_exact=True)`` (K8 40 a pair, K1 30) and with
        ``default_tpu("pallas", coarse_exact=True)`` (K7 40 a pair, K1 30);
-       each against ground truth, finite, and its host ms a frame.
+       each against ground truth, finite, and its host ms a frame;
+    c. the split (``tools/ablate.py`` ``banded_sections``, in a process of
+       its own): K7 and K8 built without the stack's reduction, without the
+       target gathers and without both, each timed at B = 1 and B = 64
+       beside the full build (held bitwise against the library's kernel),
+       printed as ``banded split`` lines.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -252,6 +257,7 @@ BA_CARD_CPU_ATOL = 1e-4  # 8d: 32 float32 PCG trips, card vs CPU
 BA_DENSE_CARD_CPU_ATOL = 1e-4  # 8d: the dense Schur solve, card vs CPU
 DIST_SOLVE_ATOL = 1e-4  # 9c/9d vs unsharded: tests/test_pose_graph.py:86-103, test_bundle_adjustment.py:147-155
 DIST_TIMEOUT_S = 300  # 9: a rank still running after this fails the run
+SPLIT_TIMEOUT_S = 300  # 12c: the split's own process (four builds of icp_banded.cu, 16 timings)
 VIZ_SCENE_FRAMES = 8  # 10: the interactive scene and the command line's preview
 VIZ_VIEWS = 24  # 10b: views of the fly-through
 VIZ_CARD_CPU_SHARE = 0.999  # 10c: pixels of equal colour, card against the CPU path (10a: bitwise)
@@ -2756,6 +2762,26 @@ def banded_odometry(torch, dataset, builder, counters, frames: int, params, want
     return out, result
 
 
+def banded_split() -> dict:
+    """``tools/ablate.py``'s ``banded_sections``: K7 and K8 built with and
+    without the stack's reduction and the target gathers, device ms of each
+    (the mean of two timings) at B = 1 and B = 64, and what the reduction and
+    the gathers add, beside the bound. It runs in a process of its own: late
+    in this one the profiler sees only part of the launches, at times none
+    (PERF.md question 6), and the split needs every time."""
+    from align3d_torch.tools import ablate
+
+    proc = subprocess.run([sys.executable, "-m", "align3d_torch.tools.ablate", "banded_sections"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=SPLIT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the split failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    sections = json.loads(proc.stdout.strip().splitlines()[-1])["ablate"]["banded_sections"]
+    return {key: {shape: {**{f"{name}_ms": sum(row[f"{name}_ms"]) / 2 for name in ablate.BANDED_VARIANTS},
+                          **{k: row[k] for k in ("reduce_ms", "gather_ms", "bound_ms", "share_of_bound")}}
+                  for shape, row in shapes.items()}
+            for key, shapes in sections.items()}
+
+
 def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
     """Phase 12 (module docstring)."""
     from align3d_torch.icp.params import MsIcpParams
@@ -2784,8 +2810,9 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
                                                                timed_plain)
             b = bound(banded_step_bytes(args[5], args[6], stats), banded_step_flops(args[5]))
             res[shape] = {"max_abs_err": worst, "ms": timing[0], "call_ms": timing[1], "plain_ms": plain_timing[0],
-                          "plain_call_ms": plain_timing[1], **b, **host, "pairs": args[0].shape[0],
-                          "library_ms": None,
+                          "plain_call_ms": plain_timing[1], **b,
+                          "share_of_bound": None if timing[0] is None else b["bound_ms"] / timing[0],
+                          **host, "pairs": args[0].shape[0], "library_ms": None,
                           "library_reason": "no PyTorch call does the banded association and its gated GN sums"}
             if shape == "batch64":
                 singles = [kernel(*(a[i:i + 1] for a in args[:7]), *args[7:]) for i in range(args[0].shape[0])]
@@ -2796,6 +2823,15 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
             print(f"banded {key} {shape}: {json.dumps(res[shape])}")
         out[key] = res
     del sources64, targets64
+
+    # 12c: the split of K7's and K8's time, from builds without the reduction or the gathers.
+    try:
+        out["split"] = banded_split()
+        for key, shapes in out["split"].items():
+            for shape, row in shapes.items():
+                print(f"banded split {key} {shape}: {json.dumps(row)}")
+    except AssertionError as exc:
+        failures.append(f"12c: {exc}")
 
     golden = Trajectory.from_tum(GOLDEN_V4.read_text()).to(DEVICE)
     runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"), {"k8": 70}),
@@ -3145,7 +3181,9 @@ def main() -> int:
                 **{k: b1[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_flops", "library_ms",
                                       "library_reason")},
                 "shape": "sample1 frames 0 <- 1, 640x480, level 0" + (", stats emitted" if key == "K7" else ""),
-                "ptxas": ptxas["banded"], "shapes": {"batch64_real_pairs": got["batch64"]}}
+                "ptxas": ptxas["banded"], "shapes": {"batch64_real_pairs": got["batch64"]},
+                "redesigned": "the stack's sums on tensor cores (mma.sync), a tile in two blocks",
+                "split": banded_out["split"][key]}
 
     k1_64 = roof["k1_batch64"]
     frames = batched_bil["batch"]

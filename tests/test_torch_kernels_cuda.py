@@ -288,6 +288,19 @@ def test_nn_banded_ptxas_report(cuda_device):
     assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
 
 
+def test_banded_ptxas_report(cuda_device):
+    """K7's and K8's -Xptxas -v report (``icp_banded_kernel<false>`` and
+    ``<true>``): registers and shared memory of both, no spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    lines = _kernels.ptxas_report("icp_banded_kernel")
+    entries = [line for line in lines if "Compiling entry function" in line]
+    assert len(entries) == 2 and all(any(t in line for line in entries) for t in ("ILb0E", "ILb1E")), lines
+    assert sum("registers" in line and "smem" in line for line in lines) == 2, lines
+    assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
+
+
 def test_nn_banded_grid_and_search_match_cpu(cuda_device):
     """The whole search on the card (grid build, sort, K4) equals the CPU
     path (the same build, the plain twin) bitwise."""
@@ -581,13 +594,15 @@ def test_icp_step_kernel_rearms_across_batch_sizes(cuda_device):
 BANDED = {"v3": (k3, lambda *a: k3.icp_step_pallas_batched(*a, emit_stats=True)), "v4": (k4, k4.icp_step_pallas_batched)}
 
 
-def _banded_args(mod, tgt, src, pose, params, bsz=1):
+def _banded_args(mod, tgt, src, pose, params, bsz=1, empty_source=False):
     """Packs, poses and bases of ``bsz`` copies of one pair (or B pairs when
-    the range images are batched) for K7/K8 at ``pose``."""
+    the range images are batched) for K7/K8 at ``pose``; with
+    ``empty_source`` the source mask is all False."""
     lead = tgt.points.shape[:-3]
     b = lead[0] if lead else 1
     h, w = tgt.height, tgt.width
-    sp = k3.pack_source(src.points.reshape(b, h, w, 3), src.mask.reshape(b, h, w),
+    src_mask = src.mask.reshape(b, h, w)
+    sp = k3.pack_source(src.points.reshape(b, h, w, 3), torch.zeros_like(src_mask) if empty_source else src_mask,
                         src.intensities.reshape(b, h, w))
     tp = mod.pack_target(tgt.points.reshape(b, h, w, 3), tgt.normals.reshape(b, h, w, 3),
                          tgt.mask.reshape(b, h, w), tgt.intensity_map.reshape(b, h + 2, w + 2))
@@ -651,6 +666,47 @@ def test_banded_kernel_batch64_bitwise_against_single(cuda_device, variant):
         assert all(torch.equal(o, x[:b]) for o, x in zip(got, batched)), b
     torch.cuda.synchronize()
     assert not icp_fused._ARRIVALS[(args[0].device, torch.cuda.current_stream().cuda_stream)].any()
+
+
+def _check_all_zero(variant, got, ref):
+    """The edge cases' blocks: every weight 0, so every entry (the counts
+    too) is 0 in the twin, and the kernel within its tolerance of that."""
+    for g, r in zip(got[:2], ref[:2]):
+        assert float(r.abs().max()) == 0.0
+        assert float(g[0, 7, 7]) == float(r[0, 7, 7]) == 0.0
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+    if variant == "v3":
+        assert torch.equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("level", [0, 2])
+@pytest.mark.parametrize("variant", ["v3", "v4"])
+def test_banded_kernel_all_gated_out(pyramids, cuda_device, variant, level):
+    """Every pixel gated out: the pose moves the source 1 km sideways, so no
+    projection lands in the image (the bases clip to the edges of the band
+    range). All weights are 0 and the blocks are zeros, in the kernel as in
+    the twin; a rerun is bitwise."""
+    mod, step = BANDED[variant]
+    tgt, src = pyramids[0][level], pyramids[1][level]
+    pose = Transform.exp(torch.tensor([0.0, 0.0, 0.0, 1000.0, 0.0, 0.0], device=cuda_device))
+    args = _banded_args(mod, tgt, src, pose, MsIcpParams.default_tpu("pallas")[level])
+    got = step(*args)
+    _check_all_zero(variant, got, mod.icp_step_plain(*args, **({"emit_stats": True} if variant == "v3" else {})))
+    assert all(torch.equal(a, b) for a, b in zip(step(*args)[:2], got[:2]))
+
+
+@pytest.mark.parametrize("level", [0, 2])
+@pytest.mark.parametrize("variant", ["v3", "v4"])
+def test_banded_kernel_empty_source_mask(pyramids, cuda_device, variant, level):
+    """An empty source mask: every source depth is 0 in the pack (and the
+    bands are predicted from empty centroids), so no pixel is valid and the
+    blocks and K7's stats are zeros, as in the twin."""
+    mod, step = BANDED[variant]
+    tgt, src = pyramids[0][level], pyramids[1][level]
+    pose = Transform.exp(torch.tensor([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], device=cuda_device))
+    args = _banded_args(mod, tgt, src, pose, MsIcpParams.default_tpu("pallas")[level], empty_source=True)
+    got = step(*args)
+    _check_all_zero(variant, got, mod.icp_step_plain(*args, **({"emit_stats": True} if variant == "v3" else {})))
 
 
 def test_banded_kernels_reject_bad_inputs(pyramids, cuda_device):

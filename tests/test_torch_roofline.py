@@ -192,6 +192,26 @@ def test_ablation_tool_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ablate.main([]) != 0
     assert ablate.main(["mesh_designs"]) != 0
+    assert ablate.main(["banded_sections"]) != 0
     assert capsys.readouterr().out == ""
     assert ablate.main(["no_such_comparison"]) != 0
     assert capsys.readouterr().out == ""
+
+
+def test_banded_ablation_inputs():
+    """``ablate.banded_inputs`` (the split of K7's and K8's time): each
+    kernel's B = 1 arguments are the first of its B pairs, and the twins give
+    that pair the same blocks on both (the bands are predicted per pair)."""
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.tools import ablate
+
+    inputs = ablate.banded_inputs(torch.device("cpu"), batch=2)
+    for key, mod, nch, dtype in (("K7", k3, k3.NCH, torch.float32), ("K8", k4, k4.NCH, torch.int32)):
+        one, many = inputs[key]["batch1"], inputs[key]["batch64"]
+        assert many[0].shape[0] == 2 and one[0].shape[0] == 1
+        assert many[6].shape[2] == nch and many[6].dtype == dtype
+        assert all(torch.equal(a[0], b[0]) for a, b in zip(one[:7], many[:7]))
+        assert one[7:] == many[7:]
+        for a, b in zip(mod.icp_step_plain(*one)[:2], mod.icp_step_plain(*many)[:2]):
+            assert torch.equal(a[0], b[0])
