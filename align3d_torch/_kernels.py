@@ -29,10 +29,11 @@ PTXAS_LOG = "ptxas.log"  # the compiler's -Xptxas -v report of the library's bui
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# Flags of one source only. The banded ICP step rounds every product and sum
-# on its own, as its plain twin does, so that the association and the gates
-# decide as the twin's do.
-FILE_FLAGS = {"icp_banded.cu": ["-fmad=false"]}
+# Flags of one source only. The banded ICP step and the band prediction round
+# every product and sum on their own, as their plain twins do, so that the
+# association and the gates decide as the twin's do and the bases are the
+# twin's bits.
+FILE_FLAGS = {"icp_banded.cu": ["-fmad=false"], "band_predict.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,6 +76,16 @@ _SIGNATURES = {
     "a3d_gather_table": [_P, ctypes.c_uint, _P, _P, _I, _I, _P],  # table, m, x, out, n, steps, stream
     "a3d_mesh_normals": [_P, _P, _P, _I, _I, _P, _P],  # points, (D, N, 2) corner table, counts, N, D, out, stream
     "a3d_column_mean": [_P, _P, _I, _P, _P],  # (sum N, 3) points, (M + 1,) int64 offsets, M, (M, 3) out, stream
+    "a3d_source_centroids": [
+        _P, _I, _I, _I,  # source pack, batch, nchunks, groups
+        _F, _F, _F, _F,  # cx, cy, f32(1/fx), f32(1/fy)
+        _P, _P, _P, _P, _P,  # pbar, rowbar, colbar, cnt, stream
+    ],
+    "a3d_predict_bases": [
+        _P, _P, _P, _P, _P, _P,  # rot, trans, pbar, rowbar, colbar, cnt
+        _I, _I, _I, _F, _F, _F, _F, _I,  # batch, nchunks, groups, fx, fy, cx, cy, largest band start
+        _P, _P, _P, _P,  # chunk_base, dy_base, dx_base, stream
+    ],
 }
 
 _lock = threading.Lock()

@@ -54,6 +54,8 @@ KERNELS = {
     "K6": ("column_mean", [(sphere, "MEAN_LAUNCHES")]),
     "K7": ("icp_banded_kernel<false>", [(icp_pallas_v3, "LAUNCHES")]),
     "K8": ("icp_banded_kernel<true>", [(icp_pallas_v4, "LAUNCHES")]),
+    "K9": ("source_centroids_kernel", [(icp_pallas_v3, "CENTROIDS_LAUNCHES")]),
+    "K10": ("predict_bases_kernel", [(icp_pallas_v3, "PREDICT_LAUNCHES")]),
 }
 RUNS, WARMUP = 5, 2
 TO_UNIT = {"ms": 1.0, "us": 1e3, "s": 1e-3}  # from ms

@@ -1,14 +1,15 @@
 // K1: the fused Gauss-Newton step of image ICP, for B frame pairs at once.
 //
-// Replaces the TPU kernels align3d_tpu/ops/icp_pallas_v4.py::_icp_kernel_v4
-// and align3d_tpu/ops/icp_pallas_v3.py::_icp_kernel_v3. It computes what the
-// plain align3d_torch/icp/image_icp.py::icp_step computes (and the JAX
-// package's icp_step): per source pixel, transform, project, look the target
-// up at trunc(u + 0.5), gate on bounds, validity, distance, normal angle and
-// colour, form the point-to-plane and photometric residuals and Jacobians
-// (bilinear intensity with the re-truncated +0.005 numeric gradient), and
-// reduce both systems to two 8x8 blocks [[H, g], [g^T, sum w r^2]] with the
-// weight sum at [7, 7].
+// Replaces no TPU kernel: it computes the XLA engine's exact step, the plain
+// jnp icp_step of align3d_tpu/icp/image_icp.py:54 (the banded Pallas kernels
+// _icp_kernel_v3 and _icp_kernel_v4 compute another function; their port is
+// K7/K8, csrc/icp_banded.cu). It computes what the plain
+// align3d_torch/icp/image_icp.py::icp_step computes: per source pixel,
+// transform, project, look the target up at trunc(u + 0.5), gate on bounds,
+// validity, distance, normal angle and colour, form the point-to-plane and
+// photometric residuals and Jacobians (bilinear intensity with the
+// re-truncated +0.005 numeric gradient), and reduce both systems to two 8x8
+// blocks [[H, g], [g^T, sum w r^2]] with the weight sum at [7, 7].
 //
 // What bounds it on an H100: memory, and the latency of the gathers that
 // depend on the projection. Per source pixel it streams 12 bytes of point

@@ -25,16 +25,20 @@ reduced as one (16, N) stack ``aw @ a.T`` of which the two diagonal 8x8
 blocks are returned (``[[H, g], [g^T, sum w r^2]]``, the weight sum at
 [7, 7]).
 
-The band prediction stays in PyTorch on the tensors' device: a handful of
-ops on (nchunks, G) per GN iteration (:func:`predict_bases_centroid`), the
-centroids once per align (:func:`source_centroids`, whose float sums run in
-XLA's order on the CPU, a 16 x 32 window at a time, so that the bases are
-the JAX package's bit for bit).
+The band prediction is two kernels of ``csrc/band_predict.cu``: K9, the
+source centroids once per align (:func:`source_centroids_batched`, whose
+float sums run in XLA's CPU order, a 16 x 32 window at a time, so that the
+bases are the JAX package's bit for bit), and K10, the bases from the
+projected centroids once per GN iteration
+(:func:`predict_bases_centroid_batched`). Their twins
+(:func:`source_centroids_plain`, :func:`predict_bases_centroid_plain`) give
+the same bits.
 
 :func:`icp_step_pallas_batched` launches ``csrc/icp_banded.cu`` (K7: float32
 7-channel target pack, optional displacement stats) on a CUDA tensor, one
 launch per call over all B pairs, and runs :func:`icp_step_plain`, the
-vectorised twin, on a CPU tensor. Nothing else selects between the two.
+vectorised twin, on a CPU tensor; K9 and K10 route the same way. Nothing else
+selects between a kernel and its twin.
 """
 
 from __future__ import annotations
@@ -58,8 +62,12 @@ BLOCKS_PER_TILE = 2  # csrc/icp_banded.cu's blocks a (chunk, group) tile: partia
 
 #: Launches of K7 since the last reset (set it to 0 to reset).
 LAUNCHES = 0
+#: Launches of K9 (the source centroids) and K10 (the bases from them).
+CENTROIDS_LAUNCHES = 0
+PREDICT_LAUNCHES = 0
 
 _XLA_WINDOW = 32  # XLA's CPU reduce: 16-row x 32-lane windows, each added in order
+_INT_SUMS_MAX = 8192  # K9's integer sums of a tile's rows / columns stay below 2^24 up to this many
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -68,6 +76,18 @@ def _ceil_div(a: int, b: int) -> int:
 
 def _band(hp: int) -> int:
     return min(BAND, hp)
+
+
+def _masked_z(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The packs' depth: z where the mask holds, else +0.0, NaN points too
+    (XLA makes a select of the JAX package's product with the 0/1 mask)."""
+    return torch.where(mask.bool(), points[..., 2], 0.0)
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Integer-valued float32 -> int32 as XLA and CUDA convert: saturating,
+    NaN to 0 (a CPU cast gives INT_MIN for both)."""
+    return torch.nan_to_num(x.to(torch.float64), nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int32)
 
 
 def _taps_u8(intensity_map: torch.Tensor, h: int, w: int) -> list[torch.Tensor]:
@@ -99,7 +119,7 @@ def pack_target(
     h, w = mask.shape[-2:]
     taps = _taps_u8(intensity_map, h, w)
     channels = [
-        points[..., 2] * mask.to(torch.float32),
+        _masked_z(points, mask),
         normals[..., 0],
         normals[..., 1],
         normals[..., 2],
@@ -118,7 +138,7 @@ def pack_source(
     h, w = mask.shape[-2:]
     g, hp = _ceil_div(w, 128), _ceil_div(h, CHUNK) * CHUNK
     nchunks = hp // CHUNK
-    s = torch.stack([points[..., 2] * mask.to(torch.float32), intensities.to(torch.float32)], dim=-3)
+    s = torch.stack([_masked_z(points, mask), intensities.to(torch.float32)], dim=-3)
     s = torch.nn.functional.pad(s, (0, g * 128 - w, 0, hp - h))
     lead = s.shape[:-3]
     s = s.reshape(*lead, 2, nchunks, CHUNK, g, 128)
@@ -183,7 +203,7 @@ def _ray_uv(rotation, translation, source_pack, intrinsics, stride: int = 1):
 def _chunk_base(chunk_mean: torch.Tensor, hp: int) -> torch.Tensor:
     """Band start rows clip(i * CHUNK + round(mean) - HALO, 0, hp - band)."""
     chunk0 = torch.arange(chunk_mean.shape[-1], dtype=torch.int32, device=chunk_mean.device) * CHUNK
-    return torch.clamp(chunk0 + torch.round(chunk_mean).to(torch.int32) - HALO, 0, max(hp - _band(hp), 0))
+    return torch.clamp(chunk0 + _to_int32(torch.round(chunk_mean)) - HALO, 0, max(hp - _band(hp), 0))
 
 
 def predict_bases_batched(rotation, translation, source_pack, intrinsics, h: int, stride: int = 1):
@@ -232,8 +252,9 @@ def _group_sums(a: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def source_centroids_batched(source_pack: torch.Tensor, intrinsics: CameraIntrinsics):
-    """:func:`source_centroids` of B pairs, (B, nchunks, 2, K, 128)."""
+def source_centroids_plain(source_pack: torch.Tensor, intrinsics: CameraIntrinsics):
+    """The plain-PyTorch twin of K9 (same arguments and returns as
+    :func:`source_centroids_batched`)."""
     z = source_pack[:, :, 0]
     nchunks, k = z.shape[1], z.shape[2]
     row, col = _pixel_grid(nchunks, k, z.device)
@@ -246,6 +267,35 @@ def source_centroids_batched(source_pack: torch.Tensor, intrinsics: CameraIntrin
     return pbar, sums[4] / safe, sums[5] / safe, cnt
 
 
+def source_centroids_batched(source_pack: torch.Tensor, intrinsics: CameraIntrinsics):
+    """:func:`source_centroids` of B pairs, (B, nchunks, 2, K, 128): on a
+    CUDA tensor one launch of K9, on a CPU tensor :func:`source_centroids_plain`."""
+    if source_pack.device.type == "cpu":
+        return source_centroids_plain(source_pack, intrinsics)
+    if source_pack.device.type != "cuda":
+        raise ValueError(f"source_centroids_batched runs on cuda or cpu tensors, got {source_pack.device}")
+    dev = source_pack.device
+    bsz, nchunks, _, k, _ = source_pack.shape
+    g = k // CHUNK
+    _kernels.check_tensor(source_pack, "source_pack", (bsz, nchunks, 2, g * CHUNK, 128), torch.float32, dev)
+    if max(nchunks * CHUNK, g * 128) > _INT_SUMS_MAX:
+        raise ValueError(f"K9 sums a tile's rows and columns as exact integers: at most {_INT_SUMS_MAX} of each, "
+                         f"got {nchunks * CHUNK} x {g * 128}")
+    tiles = bsz * nchunks * g
+    out = torch.empty(tiles * 6, dtype=torch.float32, device=dev)  # one allocation, four contiguous outputs
+    pbar = out[: 3 * tiles].view(bsz, nchunks, g, 3)
+    rowbar, colbar, cnt = (out[k * tiles : (k + 1) * tiles].view(bsz, nchunks, g) for k in (3, 4, 5))
+    status = _kernels.lib().a3d_source_centroids(
+        source_pack.data_ptr(), bsz, nchunks, g, _f32(intrinsics.cx), _f32(intrinsics.cy),
+        _f32(1.0 / intrinsics.fx), _f32(1.0 / intrinsics.fy), pbar.data_ptr(), rowbar.data_ptr(),
+        colbar.data_ptr(), cnt.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _kernels.check(status, "a3d_source_centroids")
+    global CENTROIDS_LAUNCHES
+    CENTROIDS_LAUNCHES += 1
+    return pbar, rowbar, colbar, cnt
+
+
 def source_centroids(source_pack: torch.Tensor, intrinsics: CameraIntrinsics):
     """Per-(chunk, group) masked mean source point and mean pixel row/col,
     once per align; feeds :func:`predict_bases_centroid`. Returns (pbar
@@ -254,9 +304,9 @@ def source_centroids(source_pack: torch.Tensor, intrinsics: CameraIntrinsics):
     return tuple(x[0] for x in source_centroids_batched(source_pack[None], intrinsics))
 
 
-def predict_bases_centroid_batched(rotation, translation, centroids, intrinsics, hp: int):
-    """:func:`predict_bases_centroid` of B pairs: (B, 3, 3), (B, 3), the
-    centroids of :func:`source_centroids_batched`."""
+def predict_bases_centroid_plain(rotation, translation, centroids, intrinsics, hp: int):
+    """The plain-PyTorch twin of K10 (same arguments and returns as
+    :func:`predict_bases_centroid_batched`)."""
     pbar, rowbar, colbar, cnt = centroids
     px, py, pz = _rigid(rotation, translation, pbar[..., 0], pbar[..., 1], pbar[..., 2], 2)
     safe_z = torch.where(pz == 0.0, _f32(1e-12), pz)
@@ -264,11 +314,46 @@ def predict_bases_centroid_batched(rotation, translation, centroids, intrinsics,
     v = py * _f32(intrinsics.fy) / safe_z + _f32(intrinsics.cy)
     dyf, dxf = v - rowbar, u - colbar
     have = cnt > 0
-    dy_base = torch.where(have, torch.round(dyf), 0.0).to(torch.int32)
-    dx_base = torch.where(have, torch.round(dxf), 0.0).to(torch.int32)
+    dy_base = _to_int32(torch.where(have, torch.round(dyf), 0.0))
+    dx_base = _to_int32(torch.where(have, torch.round(dxf), 0.0))
     chunk_cnt = torch.clamp(cnt.sum(dim=-1), min=1.0)
     chunk_mean = (torch.where(have, dyf, 0.0) * cnt).sum(dim=-1) / chunk_cnt
     return _chunk_base(chunk_mean, hp), dy_base, dx_base
+
+
+def predict_bases_centroid_batched(rotation, translation, centroids, intrinsics, hp: int):
+    """:func:`predict_bases_centroid` of B pairs: (B, 3, 3), (B, 3), the
+    centroids of :func:`source_centroids_batched`. On a CUDA tensor one
+    launch of K10, which reads the poses on the device; on a CPU tensor
+    :func:`predict_bases_centroid_plain`."""
+    if rotation.device.type == "cpu":
+        return predict_bases_centroid_plain(rotation, translation, centroids, intrinsics, hp)
+    if rotation.device.type != "cuda":
+        raise ValueError(f"predict_bases_centroid_batched runs on cuda or cpu tensors, got {rotation.device}")
+    dev = rotation.device
+    pbar, rowbar, colbar, cnt = centroids
+    bsz, nchunks, g = cnt.shape
+    f32, i32 = torch.float32, torch.int32
+    _kernels.check_tensor(rotation, "rotation", (bsz, 3, 3), f32, dev)
+    _kernels.check_tensor(translation, "translation", (bsz, 3), f32, dev)
+    _kernels.check_tensor(pbar, "pbar", (bsz, nchunks, g, 3), f32, dev)
+    for name, t in (("rowbar", rowbar), ("colbar", colbar), ("cnt", cnt)):
+        _kernels.check_tensor(t, name, (bsz, nchunks, g), f32, dev)
+    tiles = bsz * nchunks * g
+    out = torch.empty(bsz * nchunks + 2 * tiles, dtype=i32, device=dev)  # one allocation, three outputs
+    chunk_base = out[: bsz * nchunks].view(bsz, nchunks)
+    dy_base, dx_base = (out[bsz * nchunks + k * tiles : bsz * nchunks + (k + 1) * tiles].view(bsz, nchunks, g)
+                        for k in (0, 1))
+    status = _kernels.lib().a3d_predict_bases(
+        rotation.data_ptr(), translation.data_ptr(), pbar.data_ptr(), rowbar.data_ptr(), colbar.data_ptr(),
+        cnt.data_ptr(), bsz, nchunks, g, _f32(intrinsics.fx), _f32(intrinsics.fy), _f32(intrinsics.cx),
+        _f32(intrinsics.cy), max(hp - _band(hp), 0), chunk_base.data_ptr(), dy_base.data_ptr(), dx_base.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _kernels.check(status, "a3d_predict_bases")
+    global PREDICT_LAUNCHES
+    PREDICT_LAUNCHES += 1
+    return chunk_base, dy_base, dx_base
 
 
 def predict_bases_centroid(rotation, translation, centroids, intrinsics, hp: int):

@@ -53,7 +53,7 @@ def pack_target(
     """Target -> (..., G, 5, Hp, 128) int32 tiles; invalid pixels store z = 0."""
     h, w = mask.shape[-2:]
     taps = [t.to(torch.int32) for t in k3._taps_u8(intensity_map, h, w)]
-    z = (points[..., 2] * mask.to(torch.float32)).contiguous()
+    z = k3._masked_z(points, mask).contiguous()
     c0 = z.view(torch.int32)
     c1 = (_bf16_bits(normals[..., 0]) << 16) | _bf16_bits(normals[..., 1])
     c2 = (_bf16_bits(normals[..., 2]) << 16) | taps[8]

@@ -72,6 +72,12 @@ line), each made in this one process, so that their times compare:
   pair (B = 1) and on the 64 real pairs (B = 64), in order and then back;
   ``reduce_ms`` and ``gather_ms`` are what the reduction and the gathers
   add to the full build, beside the bound.
+* **K9 and K10, the band prediction** (``band_prediction``): each kernel,
+  its twin and, for K9, the one PyTorch call of the same sums, at B = 1 and
+  B = 64 (device ms, ms a call, host ms a call); with ``A3D_BAND_BEFORE``
+  pointing at an earlier ``ops/icp_pallas_v3.py`` its functions beside;
+  and the device activities of one ``pallas_v4`` align's GN loop and
+  prepack at B = 64 on the kernels and on the twins (or the earlier code).
 
 Each time is given twice: device ms per call from ``torch.profiler``
 (``tools/roofline.py::device_ms``), and ms per call of back-to-back calls
@@ -84,6 +90,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -598,9 +605,184 @@ def banded_sections(device) -> dict:
     return out
 
 
+#: Set to the path of an earlier ``ops/icp_pallas_v3.py`` (a parent's
+#: checkout) to time its band prediction beside the kernels in
+#: ``band_prediction``.
+BAND_BEFORE_ENV = "A3D_BAND_BEFORE"
+
+
+def _module_at(path: str):
+    """The module at ``path``, loaded under another name (its imports resolve
+    to this checkout's package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("band_prediction_before", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host_ms(fn, runs: int) -> list[float]:
+    """Host ms of ``runs`` calls of ``fn``, each ended by a synchronise."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _events_ms(fn, calls: int) -> float:
+    """ms a call of ``calls`` back-to-back calls between one CUDA event pair."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _activities(fn, names: dict) -> dict:
+    """The device activities of one call of ``fn``: their count, and the
+    launches of each kernel of ``names`` (key -> symbol)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    acts = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"activities": len(acts), **{key: sum(sym in name for name in acts) for key, sym in names.items()}}
+
+
+def band_prediction(device) -> dict:
+    """K9 (``source_centroids_batched``) and K10
+    (``predict_bases_centroid_batched``) at 640x480, level 0, on the first
+    real pair (B = 1) and the 64 real pairs (B = 64), the pose
+    ``BANDED_TWIST``: held against their twins (K9 bitwise, NaN in the same
+    places; K10's int32 outputs equal); device ms a launch and ms a call of
+    back-to-back calls of each kernel, its twin and, for K9, the one PyTorch
+    call of the same sums (``reshape(...).sum`` of the six channels: not
+    XLA's order); host ms a call (median of 20 for the kernels, 5 for the
+    twins and the earlier code), each ended by a synchronise; the bound.
+    With ``A3D_BAND_BEFORE`` set, the earlier module's functions are timed
+    beside. Then one ``pallas_v4`` align of the 64 pairs, 10 GN iterations:
+    the device activities of its GN loop and of its prepack, with K8's,
+    K9's and K10's launches, on the kernels and on the twins (or the
+    earlier code), timed in the order kernels, twins, twins, kernels."""
+    import os
+
+    from align3d_torch.icp import image_icp as ii
+    from align3d_torch.icp.params import IcpParams
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools import roofline as rl
+    from align3d_torch.tools.series import real_pairs
+
+    before_path = os.environ.get(BAND_BEFORE_ENV)
+    before = _module_at(before_path) if before_path else None
+    sources, targets = real_pairs(64, device)
+    h, w, intr, pairs = targets.height, targets.width, targets.intrinsics, sources.points.shape[0]
+    sp64 = k3.pack_source(sources.points.reshape(pairs, h, w, 3), sources.mask.reshape(pairs, h, w),
+                          sources.intensities.reshape(pairs, h, w))
+    pose = Transform.exp(torch.tensor(BANDED_TWIST, device=device))
+    nchunks, g = sp64.shape[1], sp64.shape[3] // k3.CHUNK
+    hp = nchunks * k3.CHUNK
+    out = {"before": before_path, "shapes": {}}
+    for shape, b in (("batch1", 1), ("batch64", pairs)):
+        sp = sp64[:b].contiguous()
+        rot, trans = pose.rotation.expand(b, 3, 3).contiguous(), pose.translation.expand(b, 3).contiguous()
+        calls = CALLS["frame"] if b == 1 else CALLS["series"]
+        centroids = k3.source_centroids_batched(sp, intr)
+        twin = k3.source_centroids_plain(sp, intr)
+        if not all(same_bits(x, y) for x, y in zip(centroids, twin)):
+            raise AssertionError(f"K9 {shape} differs from its twin")
+        bases = k3.predict_bases_centroid_batched(rot, trans, centroids, intr, hp)
+        if not all(torch.equal(x, y) for x, y in zip(bases, k3.predict_bases_centroid_plain(rot, trans, centroids,
+                                                                                              intr, hp))):
+            raise AssertionError(f"K10 {shape} differs from its twin")
+        z = sp[:, :, 0]
+        row, col = k3._pixel_grid(nchunks, z.shape[2], device)
+        dirx, diry = k3._rays(row, col, intr)
+        m = (z > 0).to(torch.float32)
+        channels = torch.stack([m, dirx * z, diry * z, z, row * m, col * m]).reshape(6, b, nchunks, g, k3.CHUNK, 128)
+        library = channels.sum(dim=(-2, -1))
+        fns = {"k9": lambda: k3.source_centroids_batched(sp, intr),
+               "k9_plain": lambda: k3.source_centroids_plain(sp, intr),
+               "k9_library": lambda: channels.sum(dim=(-2, -1)),
+               "k10": lambda: k3.predict_bases_centroid_batched(rot, trans, centroids, intr, hp),
+               "k10_plain": lambda: k3.predict_bases_centroid_plain(rot, trans, centroids, intr, hp)}
+        if before is not None:
+            fns["k9_before"] = lambda: before.source_centroids_batched(sp, intr)
+            fns["k10_before"] = lambda: before.predict_bases_centroid_batched(rot, trans, centroids, intr, hp)
+        kernels = {"k9": "source_centroids_kernel", "k10": "predict_bases_kernel"}
+        safe = torch.clamp(library[0], min=1.0)
+        library_means = (torch.stack([library[1], library[2], library[3]], dim=-1) / safe[..., None],
+                         library[4] / safe, library[5] / safe, library[0])
+        row_out = {"pairs": b,
+                   "k9_library_max_abs_diff": max(float((x - y).abs().max()) for x, y in zip(library_means, centroids)),
+                   "k9_bound_bytes": rl.centroids_bytes(sp), "k9_bound_flops": rl.centroids_flops(sp),
+                   "k10_bound_bytes": rl.predict_bytes(b, nchunks, g),
+                   "k10_bound_flops": rl.predict_flops(b, nchunks, g)}
+        for key in ("k9", "k10"):
+            row_out[f"{key}_bound_ms"] = max(row_out[f"{key}_bound_bytes"] / rl.PEAK_HBM_BYTES,
+                                             row_out[f"{key}_bound_flops"] / rl.PEAK_F32_FLOPS) * 1e3
+        for name, fn in fns.items():
+            cheap = name in kernels or name == "k9_library"
+            ms, acts = rl.device_ms(fn, calls if cheap else 2, kernels.get(name))
+            row_out[f"{name}_ms"] = ms
+            row_out[f"{name}_activities_a_call"] = len(acts) / (calls if cheap else 2)
+            row_out[f"{name}_call_ms"] = _events_ms(fn, calls if cheap else 2)
+            row_out[f"{name}_host_ms"] = sorted(_host_ms(fn, 20 if name in kernels else 5))
+        out["shapes"][shape] = row_out
+        del channels, library, library_means
+
+    # One pallas_v4 align of the 64 pairs: its GN loop and its prepack, on the
+    # kernels and on the twins (or the earlier code) patched in.
+    flat = (sources.points.reshape(pairs, -1, 3), sources.mask.reshape(pairs, -1),
+            sources.intensities.reshape(pairs, -1), targets.points.reshape(pairs, -1, 3),
+            targets.mask.reshape(pairs, -1), targets.normals.reshape(pairs, -1, 3), targets.intensity_map)
+    params = IcpParams(max_iterations=10, engine="pallas_v4")
+    ident = Transform.identity((pairs,), device=device)
+    names = {"k8": "icp_banded_kernel<true>", "k9": "source_centroids_kernel", "k10": "predict_bases_kernel"}
+    alt = before or k3
+    plain = {"source_centroids_batched": getattr(alt, "source_centroids_batched" if before else "source_centroids_plain"),
+             "predict_bases_centroid_batched": getattr(alt, "predict_bases_centroid_batched" if before
+                                                       else "predict_bases_centroid_plain")}
+    kept = {name: getattr(k3, name) for name in plain}
+    aligns = out["align_pallas_v4_batch64"] = {}
+    alt = "before" if before else "plain"
+    for label in ("kernels", alt, alt, "kernels"):  # the host's drift falls on both alike
+        for name, fn in (plain if label == alt else {}).items():
+            setattr(k3, name, fn)
+        try:
+            packed = ii.prepack_v4_batched(*flat, intr)
+
+            def loop():
+                return ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], intr,
+                                                              *packed[3:], params)
+
+            if label not in aligns:
+                acts = _activities(loop, names)
+                aligns[label] = {"gn_loop": acts, "activities_per_iteration": acts["activities"] / params.max_iterations,
+                                 "prepack": _activities(lambda: ii.prepack_v4_batched(*flat, intr), names),
+                                 "gn_loop_host_ms": []}
+            aligns[label]["gn_loop_host_ms"] += _host_ms(loop, 5)
+        finally:
+            for name, fn in kept.items():
+                setattr(k3, name, fn)
+    for row in aligns.values():
+        row["gn_loop_host_ms"].sort()
+    return out
+
+
 SECTIONS = {"splat_exact": splat_exact, "tap_packs": tap_packs, "slice_composition": slice_composition,
             "slice_pixels": slice_pixels, "mesh_designs": mesh_designs, "mesh_host": mesh_host,
-            "table_gather": table_gather, "banded_sections": banded_sections}
+            "table_gather": table_gather, "banded_sections": banded_sections, "band_prediction": band_prediction}
 
 
 def main(argv: list[str] | None = None) -> int:

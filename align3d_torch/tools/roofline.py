@@ -409,6 +409,37 @@ def banded_step_flops(source_pack: torch.Tensor) -> int:
     return source_pack[:, :, 0].numel() * BANDED_FLOPS_PER_PIXEL
 
 
+#: Float operations of one source pixel in K9: the mask, dirx z, diry z,
+#: row m, col m and the six sums.
+CENTROID_FLOPS_PER_PIXEL = 11
+#: Float operations of one (chunk, group) in K10: the rigid transform (15),
+#: the projection (6), the two displacements and the chunk's sums (5).
+PREDICT_FLOPS_PER_GROUP = 26
+
+
+def centroids_bytes(source_pack: torch.Tensor) -> int:
+    """Bytes K9 needs for B pairs: the depth channel of the (B, nchunks, 2,
+    K, 128) source packs once, and pbar, rowbar, colbar and cnt (six float32
+    a (chunk, group)) once. A 640x480 pair: 1,228,800 + 3,600 bytes."""
+    b, nchunks, _, k, _ = source_pack.shape
+    return b * nchunks * k * 128 * 4 + b * nchunks * (k // 16) * 6 * 4
+
+
+def centroids_flops(source_pack: torch.Tensor) -> int:
+    return source_pack[:, :, 0].numel() * CENTROID_FLOPS_PER_PIXEL
+
+
+def predict_bytes(b: int, nchunks: int, groups: int) -> int:
+    """Bytes K10 needs for B pairs: the poses, K9's six float32 a (chunk,
+    group), and the int32 bases out (a chunk base and G row and column bases
+    a chunk)."""
+    return b * 12 * 4 + b * nchunks * groups * 6 * 4 + b * nchunks * (1 + 2 * groups) * 4
+
+
+def predict_flops(b: int, nchunks: int, groups: int) -> int:
+    return b * nchunks * groups * PREDICT_FLOPS_PER_GROUP
+
+
 def kernel_sections(device, batch: int = 64, reps: int = 20) -> dict:
     """K1 at ``batch`` distinct real pairs, 640x480, identity poses: ms per launch."""
     from align3d_torch.icp.image_icp import prepack_batched

@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
    the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
-   K3 (its four instantiations), K4, K5 and K6.
+   K3 (its four instantiations), K4, K5, K6, K7/K8, K9 and K10.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
    ``torch.profiler`` (for K1-K3 and K5 checked to be one launch of the
@@ -168,8 +168,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
     bench's line reports against what its path issues (K8 10 an align at
     B = 64 and K1 10 beside it, K7 10 a kernel-only call and 10 a full
     align and K1 10 each beside them, K8 70 an ``odometry_step`` and K1 70
-    beside it, K2 and K3 one a bucket with the filter and one a
-    ``filter_static``, K4 10 a pcl align and one a nearest search, K5 one a
+    beside it, K10 once a banded GN iteration and K9 once a banded align
+    (one a full align of ``bench_icp_kernel``, 3 an ``odometry_step``), K2
+    and K3 one a bucket with the filter and one a ``filter_static``, K4 10 a pcl align and one a nearest search, K5 one a
     call); each bench's result bitwise the same port call made here on the
     same inputs (the global refinement bench excepted: ``index_add_`` adds
     by atomics); each line printed as ``bench <module>: {...}``.
@@ -182,19 +183,36 @@ Run from the root of a checkout. Phases, each of which fails the run:
        stats bitwise; each pair's blocks at B = 64 bitwise its B = 1
        blocks; device ms a launch (every activity a launch of the kernel)
        and per-call ms of both, the twin's, the bound (tools/roofline.py
-       ``banded_step_bytes``), and the band prediction's host ms;
+       ``banded_step_bytes``), and the band prediction's host ms; K9 (the
+       source centroids, ``csrc/band_predict.cu``) bitwise its twin on the
+       card and on the CPU (NaN in the same places) at the three levels of
+       sample1 frame 1 (B = 1) and of 64 frames of the real series (B = 64,
+       each frame's outputs bitwise its B = 1 launch), and on a source with
+       empty groups and a NaN depth; K10 (the bases) equal to its twin at the
+       pose of each iteration of a 10-iteration ``pallas_v4`` align of the 64
+       real pairs, and at crafted poses: a drop and a lift of 0.5 m (band
+       starts clipped at 0 and at hp - 32) and a centroid taken to pz == 0;
     b. ``run_odometry`` on sample1, filter on: 31 frames with
-       ``default_tpu("pallas_v4")`` (K8 70 launches a pair, K1 and K7 none)
+       ``default_tpu("pallas_v4")`` (K8 and K10 70 launches a pair, K9 3,
+       K1 and K7 none)
        against the JAX package's golden trajectory of that engine within
        POSE_ATOL; 10 frames with ``default_tpu("pallas_v4",
-       coarse_exact=True)`` (K8 40 a pair, K1 30) and with
-       ``default_tpu("pallas", coarse_exact=True)`` (K7 40 a pair, K1 30);
+       coarse_exact=True)`` (K8 and K10 40 a pair, K9 2, K1 30) and with
+       ``default_tpu("pallas", coarse_exact=True)`` (K7 and K10 40 a pair,
+       K9 2, K1 30);
        each against ground truth, finite, and its host ms a frame;
     c. the split (``tools/ablate.py`` ``banded_sections``, in a process of
        its own): K7 and K8 built without the stack's reduction, without the
        target gathers and without both, each timed at B = 1 and B = 64
        beside the full build (held bitwise against the library's kernel),
-       printed as ``banded split`` lines.
+       printed as ``banded split`` lines;
+    d. K9's and K10's times (``tools/ablate.py`` ``band_prediction``, in a
+       process of its own): device ms a launch at B = 1 and 64, their twins'
+       and, for K9, one ``torch`` sum of the same six channels; host ms a
+       call of each wrapper and twin; the device activities of one
+       ``pallas_v4`` align's GN loop and prepack at B = 64 on the kernels and
+       on the twins (K10 once a GN iteration, K9 once an align), printed as
+       ``banded K9/K10`` lines.
 
 It prints the roofline tool's JSON line, a ``{"kernels": [...]}`` JSON line
 (each kernel with its bound from this run's shapes, ``bound_by`` bytes or
@@ -219,6 +237,7 @@ SAMPLE1 = ROOT / "tests" / "data" / "rgbd" / "sample1"
 GOLDEN = ROOT / "tests" / "data" / "golden" / "sample1_bilateral_10.tum"
 GOLDEN_V4 = ROOT / "tests" / "data" / "golden" / "sample1_bilateral_pallas_v4_31.tum"
 BANDED_FRAMES, BANDED_CUT = 31, 10  # 12b: the pallas_v4 golden's frames; the coarse_exact runs'
+BAND_TIMING_TIMEOUT_S = 300  # 12d: K9's and K10's timing in a process of its own
 FRAMES = 10
 DEVICE = "cuda"
 
@@ -273,7 +292,8 @@ PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 #: are instantiations of one template).
 KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",),
                 "mesh": ("mesh_normals",), "sphere": ("column_mean",),
-                "banded": ("icp_banded_kernel<false>", "icp_banded_kernel<true>")}
+                "banded": ("icp_banded_kernel<false>", "icp_banded_kernel<true>"),
+                "centroids": ("source_centroids_kernel",), "predict": ("predict_bases_kernel",)}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
 PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
@@ -2613,21 +2633,23 @@ def direct_results(torch, name: str, mod, line: dict):
 def bench_launch_failures(name: str, line: dict) -> list:
     """The launches a bench's line reports against what its path issues,
     and the profiler's count beside them (reported, not gated)."""
-    want = {"bench_image_icp": {"K8": 10}, "bench_icp_kernel": {"K7": 10}, "bench_pcl_icp": {"K4": 10},
+    # K10 once a banded GN iteration; K9 once a banded align (3 an odometry step, one a level).
+    banded_step = {"K8": STEP_ITERATIONS, "K9": 3, "K10": STEP_ITERATIONS}
+    want = {"bench_image_icp": {"K8": 10, "K10": 10}, "bench_icp_kernel": {"K7": 10}, "bench_pcl_icp": {"K4": 10},
             "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1}, "bench_bilateral": {"K2": 1, "K3": 1},
-            "bench_odometry": {"K8": STEP_ITERATIONS}, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
+            "bench_odometry": banded_step, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
     checks = [("line", line, want)]
     if name == "bench_image_icp":
         checks.append(("xla", line["xla"], {"K1": 10}))
     if name == "bench_icp_kernel":
-        checks += [("full_align", line["full_align"], {"K7": 10}),
+        checks += [("full_align", line["full_align"], {"K7": 10, "K9": 1, "K10": 10}),
                    ("xla_full_align", line["xla_full_align"], {"K1": 10}),
                    ("xla_kernel_only", line["xla_kernel_only"], {"K1": 10})]
     if name == "bench_odometry":
         checks.append(("xla", line["xla"], {"K1": STEP_ITERATIONS}))
         for key in ("real", "mixed", "synthetic"):
             on = line["series"][key]["on"]
-            checks.append((f"{key} filter on", on, {"K8": STEP_ITERATIONS, "K2": on["buckets"], "K3": on["buckets"]}))
+            checks.append((f"{key} filter on", on, {**banded_step, "K2": on["buckets"], "K3": on["buckets"]}))
     out = []
     for label, summary, kernels in checks:
         if summary.get("launches") is None:  # the scaling bench's spawned worlds count none
@@ -2782,6 +2804,151 @@ def banded_split() -> dict:
             for key, shapes in sections.items()}
 
 
+def max_abs_gap(torch, got, ref) -> float:
+    """The largest |got - ref| over tuples of tensors, NaN where both are NaN skipped."""
+    gaps = []
+    for g, r in zip(got, ref):
+        g, r = g.double().cpu(), r.double().cpu()
+        both = torch.isnan(g) & torch.isnan(r)
+        gaps.append(float((g - r)[~both].abs().max()) if (~both).any() else 0.0)
+    return max(gaps)
+
+
+def check_band_prediction(torch, dataset, builder) -> tuple[dict, list]:
+    """12a, K9 and K10 (module docstring)."""
+    import numpy as np
+
+    from align3d_torch.icp import image_icp as ii
+    from align3d_torch.icp.params import IcpParams
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.range_image import build_pyramid_impl
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools import series
+    from align3d_torch.tools.ablate import same_bits
+
+    out, failures = {"k9": {}, "k10": {}}, []
+
+    def pack(ri, b, points=None, mask=None):
+        h, w = ri.height, ri.width
+        return k3.pack_source(ri.points.reshape(b, h, w, 3) if points is None else points,
+                              ri.mask.reshape(b, h, w) if mask is None else mask, ri.intensities.reshape(b, h, w))
+
+    def check_k9(label, sp, intr, singles: bool):
+        got = k3.source_centroids_batched(sp, intr)
+        ref, cpu = k3.source_centroids_plain(sp, intr), k3.source_centroids_plain(sp.cpu(), intr)
+        row = {"shape": list(sp.shape), "bitwise_plain": all(same_bits(g, r) for g, r in zip(got, ref)),
+               "bitwise_cpu_plain": all(same_bits(g.cpu(), c) for g, c in zip(got, cpu)),
+               "max_abs_err": max_abs_gap(torch, got, ref), "nan": int(torch.isnan(got[0]).sum()),
+               "empty_groups": int((got[3] == 0).sum())}
+        if singles:
+            row["bitwise_b1"] = all(all(same_bits(o[0], x[i])
+                                        for o, x in zip(k3.source_centroids_batched(sp[i:i + 1], intr), got))
+                                    for i in range(sp.shape[0]))
+        if not all(v for k, v in row.items() if k.startswith("bitwise")):
+            failures.append(f"12a K9 {label}: {row}")
+        out["k9"][label] = row
+        return got
+
+    # K9 at the three levels: sample1 frame 1 (B = 1) and 64 frames of the real series (B = 64).
+    s = series.real_frames()
+    levels64 = build_pyramid_impl(True, True, 3, 1.0, s.camera, torch.from_numpy(s.depth_scales),
+                                  torch.from_numpy(s.colors).to(DEVICE),
+                                  torch.from_numpy(s.depths.astype(np.int32)).to(DEVICE))
+    one = builder.build(dataset.get(1), DEVICE)
+    for level in range(3):
+        check_k9(f"level{level}_batch1", pack(one[level], 1), one[level].intrinsics, False)
+        src = levels64[level].frames(torch.arange(1, s.depths.shape[0], device=DEVICE))
+        check_k9(f"level{level}_batch64", pack(src, s.depths.shape[0] - 1), src.intrinsics, True)
+    del levels64
+    # Empty groups (lanes 128-255 and rows 16-31 masked out) and a NaN depth under a true mask.
+    src = one[0]
+    h, w = src.height, src.width
+    points, mask = src.points.reshape(1, h, w, 3).clone(), src.mask.reshape(1, h, w).clone()
+    mask[:, :, 128:256] = False
+    mask[:, 16:32] = False
+    mask[0, 40, 300] = True
+    points[0, 40, 300, 2] = float("nan")
+    sp1 = pack(src, 1)
+    check_k9("level0_empty_groups_nan", pack(src, 1, points, mask), src.intrinsics, False)
+    if not (out["k9"]["level0_empty_groups_nan"]["nan"] and out["k9"]["level0_empty_groups_nan"]["empty_groups"]):
+        failures.append("12a K9: the edited source has no NaN or no empty group")
+
+    def check_k10(rot, trans, centroids, intr, hp):
+        got = k3.predict_bases_centroid_batched(rot, trans, centroids, intr, hp)
+        ref = k3.predict_bases_centroid_plain(rot, trans, centroids, intr, hp)
+        return got, all(torch.equal(g, r) for g, r in zip(got, ref)), max_abs_gap(torch, got, ref)
+
+    # K10 at the pose of every iteration of a 10-iteration pallas_v4 align of the 64 real pairs.
+    sources, targets = series.real_pairs(64, DEVICE)
+    b, n = sources.points.shape[0], targets.height * targets.width
+    flat = (sources.points.reshape(b, n, 3), sources.mask.reshape(b, n), sources.intensities.reshape(b, n),
+            targets.points.reshape(b, n, 3), targets.mask.reshape(b, n), targets.normals.reshape(b, n, 3),
+            targets.intensity_map)
+    packed = ii.prepack_v4_batched(*flat, targets.intrinsics)
+    poses, kernel = [], k3.predict_bases_centroid_batched
+
+    def recording(rot, trans, *rest):
+        poses.append((rot.clone(), trans.clone()))
+        return kernel(rot, trans, *rest)
+
+    ident = Transform.identity((b,), device=DEVICE)
+    k3.predict_bases_centroid_batched = recording
+    try:
+        ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], targets.intrinsics,
+                                               *packed[3:], IcpParams(max_iterations=10, engine="pallas_v4"))
+    finally:
+        k3.predict_bases_centroid_batched = kernel
+    hp = packed[0].shape[1] * k3.CHUNK
+    checked = [check_k10(rot, trans, packed[2], targets.intrinsics, hp) for rot, trans in poses]
+    out["k10"]["align_pallas_v4_batch64"] = {"iterations": len(poses), "equal_plain": [c[1] for c in checked],
+                                             "max_abs_err": max(c[2] for c in checked)}
+    if len(poses) != 10 or not all(c[1] for c in checked):
+        failures.append(f"12a K10: the 64-pair align's bases differ from the twin's: {out['k10']}")
+    del packed, sources, targets
+
+    # K10 at crafted poses on sample1 frame 1, level 0: a drop and a lift of
+    # 0.5 m (band starts clipped at 0 and at hp - 32), and a translation that
+    # takes the first non-empty group's centroid to the origin (its pz == 0).
+    centroids = k3.source_centroids_batched(sp1, src.intrinsics)
+    hp = sp1.shape[1] * k3.CHUNK
+    twist = Transform.exp(torch.tensor(K1_TWIST, device=DEVICE))
+    c, g = (int(i) for i in torch.nonzero(centroids[3][0] > 0)[0])
+    x, r = centroids[0][0, c, g], twist.rotation
+    to_origin = -torch.stack([(r[i, 0] * x[0] + r[i, 1] * x[1]) + r[i, 2] * x[2] for i in range(3)])
+    crafted = {"twist": twist, "drop": Transform.exp(torch.tensor([0.0, -0.5, 0, 0, 0, 0], device=DEVICE)),
+               "lift": Transform.exp(torch.tensor([0.0, 0.5, 0, 0, 0, 0], device=DEVICE)),
+               "pz_zero": Transform(r, to_origin)}
+    edge = max(hp - min(32, hp), 0)
+    for name, pose in crafted.items():
+        got, equal, err = check_k10(pose.rotation[None].contiguous(), pose.translation[None].contiguous(), centroids,
+                                    src.intrinsics, hp)
+        out["k10"][name] = {"equal_plain": equal, "max_abs_err": err, "chunk_base": got[0][0].tolist()}
+        if not equal:
+            failures.append(f"12a K10 {name}: the bases differ from the twin's")
+    clipped = {"drop": 0 in out["k10"]["drop"]["chunk_base"][1:-1],
+               "lift": edge in out["k10"]["lift"]["chunk_base"][1:-1]}
+    out["k10"]["clipped"] = clipped
+    if not all(clipped.values()):
+        failures.append(f"12a K10: the crafted poses did not clip the band starts: {clipped}")
+    out["k9_max_abs_err"] = max(row["max_abs_err"] for row in out["k9"].values())
+    out["k10_max_abs_err"] = max(v["max_abs_err"] for v in out["k10"].values() if isinstance(v, dict)
+                                 and "max_abs_err" in v)
+    return out, failures
+
+
+def band_timing() -> dict:
+    """12d: ``tools/ablate.py band_prediction`` in a process of its own
+    (fresh, so that the profiler sees every launch): K9's and K10's device
+    ms, their twins', K9's library call, host ms, and the device activities
+    of a pallas_v4 align's GN loop and prepack on the kernels and on the
+    twins."""
+    proc = subprocess.run([sys.executable, "-m", "align3d_torch.tools.ablate", "band_prediction"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BAND_TIMING_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the band prediction's timing failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["ablate"]["band_prediction"]
+
+
 def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
     """Phase 12 (module docstring)."""
     from align3d_torch.icp.params import MsIcpParams
@@ -2824,6 +2991,11 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
         out[key] = res
     del sources64, targets64
 
+    # 12a, K9 and K10: bitwise their twins at the levels, the real align's poses and the crafted ones.
+    out["band_prediction"], band_failures = check_band_prediction(torch, dataset, builder)
+    failures += band_failures
+    print(f"banded K9/K10 checks: {json.dumps(out['band_prediction'])}")
+
     # 12c: the split of K7's and K8's time, from builds without the reduction or the gathers.
     try:
         out["split"] = banded_split()
@@ -2834,11 +3006,12 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
         failures.append(f"12c: {exc}")
 
     golden = Trajectory.from_tum(GOLDEN_V4.read_text()).to(DEVICE)
-    runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"), {"k8": 70}),
+    # A pair's launches: K10 once a banded GN iteration, K9 once a banded level.
+    runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"), {"k8": 70, "k9": 3, "k10": 70}),
             ("pallas_v4_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas_v4", coarse_exact=True),
-             {"k8": 40, "icp": 30}),
+             {"k8": 40, "icp": 30, "k9": 2, "k10": 40}),
             ("pallas_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas", coarse_exact=True),
-             {"k7": 40, "icp": 30}))
+             {"k7": 40, "icp": 30, "k9": 2, "k10": 40}))
     for name, frames, ms_params, want in runs:
         try:
             got, result = banded_odometry(torch, dataset, builder, counters, frames, ms_params, want)
@@ -2853,8 +3026,50 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
                 failures.append(f"12b: the pallas_v4 trajectory differs from the JAX golden: {got}")
         out[name] = got
         print(f"banded odometry {name}: {json.dumps(got)}")
+
+    # 12d: K9's and K10's times, in a process of its own.
+    try:
+        out["band_timing"] = band_timing()
+        for shape, row in out["band_timing"]["shapes"].items():
+            print(f"banded K9/K10 {shape}: {json.dumps(row)}")
+        print(f"banded pallas_v4 align activities: {json.dumps(out['band_timing']['align_pallas_v4_batch64'])}")
+    except AssertionError as exc:
+        failures.append(f"12d: {exc}")
     out["phase_s"] = time.perf_counter() - t_phase
     return out, failures
+
+
+def band_entry(key: str, banded_out: dict, launches: int, launches_by_path: dict, ptxas_lines: list) -> dict:
+    """The ``kernels`` line's entry of K9 or K10: 12d's times at B = 1 (and
+    B = 64 under ``shapes``), 12a's errors."""
+    rows, checks, k = banded_out["band_timing"]["shapes"], banded_out["band_prediction"], key.lower()
+
+    def times(row):
+        t_bytes, t_ops = row[f"{k}_bound_bytes"] / PEAK_BYTES, row[f"{k}_bound_flops"] / PEAK_F32
+        return {"ms": row[f"{k}_ms"], "call_ms": row[f"{k}_call_ms"], "plain_ms": row[f"{k}_plain_ms"],
+                "plain_call_ms": row[f"{k}_plain_call_ms"], "bound_ms": row[f"{k}_bound_ms"],
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": row[f"{k}_bound_bytes"], "bound_flops": row[f"{k}_bound_flops"],
+                "host_ms": row[f"{k}_host_ms"][len(row[f"{k}_host_ms"]) // 2],
+                "plain_host_ms": row[f"{k}_plain_host_ms"][len(row[f"{k}_plain_host_ms"]) // 2],
+                "library_ms": row["k9_library_ms"] if k == "k9" else None}
+
+    library = ({"library_call": "one torch sum of the six channels, reshape(6, B, nchunks, G, 16, 128)"
+                                ".sum(dim=(-2, -1)): the same sums, not XLA's order",
+                "library_max_abs_diff": rows["batch1"]["k9_library_max_abs_diff"]} if k == "k9" else
+               {"library_reason": "no PyTorch call projects the centroids into band bases"})
+    return {"name": {"k9": "source_centroids (K9)", "k10": "predict_bases_centroid (K10)"}[k], "route": "cuda",
+            "source": "align3d_torch/csrc/band_predict.cu",
+            "replaces": {"k9": "align3d_tpu/ops/icp_pallas_v3.py:203", "k10": "align3d_tpu/ops/icp_pallas_v3.py:250"}[k],
+            "pallas_calls": [],
+            "replaces_note": "plain jnp that XLA fuses into the jitted banded align (align3d_tpu/icp/image_icp.py:"
+                             + ("278" if k == "k9" else "285") + "); no TPU kernel computes it",
+            "launches": launches, "launches_by_path": launches_by_path, "max_abs_err": checks[f"{k}_max_abs_err"],
+            "err": ("max |kernel - plain| (bitwise at the three levels, B = 1 and 64, NaN in the same places)"
+                    if k == "k9" else "max |kernel - plain| of the int32 bases (equal at every pose)"),
+            **times(rows["batch1"]), "timed_calls": 50, "shape": "sample1 frames 0 <- 1, 640x480, level 0",
+            "host_ms_of": "a call ended by a synchronise, median (kernel of 20, twin of 5)",
+            **library, "ptxas": ptxas_lines, "shapes": {"batch64_real_pairs": times(rows["batch64"])}}
 
 
 def main() -> int:
@@ -3121,13 +3336,16 @@ def main() -> int:
     from align3d_torch.ops import icp_pallas_v3, icp_pallas_v4
 
     banded_counters = {"icp": (icp_fused, "LAUNCHES"), "k7": (icp_pallas_v3, "LAUNCHES"),
-                       "k8": (icp_pallas_v4, "LAUNCHES")}
+                       "k8": (icp_pallas_v4, "LAUNCHES"), "k9": (icp_pallas_v3, "CENTROIDS_LAUNCHES"),
+                       "k10": (icp_pallas_v3, "PREDICT_LAUNCHES")}
     banded_out, failures = banded(torch, dataset, builder, banded_counters)
     print("banded: " + json.dumps(banded_out))
     if failures:
         return fail("; ".join(failures))
     launches["k7"] = banded_out["pallas_coarse_exact"]["launches"]["k7"]
     launches["k8"] = banded_out["pallas_v4"]["launches"]["k8"]
+    launches["k9"] = banded_out["pallas_v4"]["launches"]["k9"]
+    launches["k10"] = banded_out["pallas_v4"]["launches"]["k10"]
     done("phase 12")
     by_path = {"odometry (4a)": {k: launches[k] for k in ("icp", "splat", "slice")},
                "TUM odometry, uninterrupted (7)": data["launches"]["uninterrupted"],
@@ -3201,6 +3419,8 @@ def main() -> int:
                   "max_abs_err": throughput["k1_batch64_max_rel_err_plain"],
                   **bound(k1_64["bytes"], 300 * k1_64["gathers"] / 2)}}),
         *(banded_entry(key) for key in ("K7", "K8")),
+        *(band_entry(key, banded_out, launches[key.lower()], paths(key.lower()),
+                     ptxas["centroids" if key == "K9" else "predict"]) for key in ("K9", "K10")),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",
               "splat", splat, "max |kernel - plain|", ptxas=ptxas["splat"],
               launches_by_path=paths("splat"),

@@ -718,6 +718,125 @@ def test_banded_kernels_reject_bad_inputs(pyramids, cuda_device):
         k4.icp_step_pallas_batched(*args[:5], args[5][:, :, :, :-1].contiguous(), *args[6:])
 
 
+# -- K9, K10: the band prediction ----------------------------------------------------
+
+
+def _source_pack(src, edit=None):
+    """(1, nchunks, 2, K, 128) source pack of a range image; ``edit`` is
+    "empty_and_nan": lanes 128-255 and rows 16-31 masked out, and a valid
+    pixel's z set to NaN."""
+    h, w = src.height, src.width
+    points, mask = src.points.reshape(1, h, w, 3).clone(), src.mask.reshape(1, h, w).clone()
+    if edit == "empty_and_nan":
+        mask[:, :, 128:256] = False
+        mask[:, 16:32] = False
+        mask[0, 40, 300] = True
+        points[0, 40, 300, 2] = float("nan")
+    return k3.pack_source(points, mask, src.intensities.reshape(1, h, w))
+
+
+@pytest.mark.parametrize("level, edit", [(0, None), (1, None), (2, None), (0, "empty_and_nan")])
+def test_source_centroids_kernel_bitwise(pyramids, cuda_device, level, edit):
+    """K9 against its twin on the card and on the CPU, bitwise (NaN in the
+    same places), one launch a call."""
+    src = pyramids[1][level]
+    sp = _source_pack(src, edit)
+    before = k3.CENTROIDS_LAUNCHES
+    got = k3.source_centroids_batched(sp, src.intrinsics)
+    assert k3.CENTROIDS_LAUNCHES == before + 1
+    ref = k3.source_centroids_plain(sp, src.intrinsics)
+    cpu = k3.source_centroids_plain(sp.cpu(), src.intrinsics)
+    for g, r, c in zip(got, ref, cpu):
+        assert _same_bits(g, r) and _same_bits(g.cpu(), c)
+    if edit:
+        assert torch.isnan(got[0]).any() and (got[3] == 0).any()
+
+
+def _predict_poses(device, sp, intrinsics):
+    """Poses K10 is held at: a twist, a drop and a lift of 0.5 m (band
+    starts clipped at 0 and at hp - 32), and a translation that takes the
+    first non-empty group's centroid to the origin (its pz == 0)."""
+    twist = Transform.exp(torch.tensor([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], device=device))
+    poses = [twist, Transform.exp(torch.tensor([0.0, -0.5, 0.0, 0.0, 0.0, 0.0], device=device)),
+             Transform.exp(torch.tensor([0.0, 0.5, 0.0, 0.0, 0.0, 0.0], device=device))]
+    pbar, _, _, cnt = k3.source_centroids_plain(sp[:1], intrinsics)
+    c, g = (int(i) for i in torch.nonzero(cnt[0] > 0)[0])
+    x, r = pbar[0, c, g], twist.rotation
+    t = -torch.stack([(r[i, 0] * x[0] + r[i, 1] * x[1]) + r[i, 2] * x[2] for i in range(3)])
+    return poses + [Transform(r, t)]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_predict_bases_kernel_equals_plain(pyramids, cuda_device, level):
+    """K10's three int32 outputs equal its twin's on the card, one launch a
+    call, at each pose of ``_predict_poses``; the drop and the lift clip
+    some band starts at 0 and at hp - min(32, hp)."""
+    src = pyramids[1][level]
+    sp = _source_pack(src)
+    centroids = k3.source_centroids_batched(sp, src.intrinsics)
+    hp = sp.shape[1] * k3.CHUNK
+    clipped = set()
+    for pose in _predict_poses(cuda_device, sp, src.intrinsics):
+        rot, trans = pose.rotation[None].contiguous(), pose.translation[None].contiguous()
+        before = k3.PREDICT_LAUNCHES
+        got = k3.predict_bases_centroid_batched(rot, trans, centroids, src.intrinsics, hp)
+        assert k3.PREDICT_LAUNCHES == before + 1
+        ref = k3.predict_bases_centroid_plain(rot, trans, centroids, src.intrinsics, hp)
+        assert all(g.dtype == torch.int32 and torch.equal(g, r) for g, r in zip(got, ref))
+        clipped |= {int(v) for v in got[0][0, 1:-1]} & {0, max(hp - min(32, hp), 0)}
+    assert clipped == {0, max(hp - min(32, hp), 0)}
+
+
+def test_band_prediction_batch64_bitwise_against_single(cuda_device):
+    """K9 and K10 at B = 64 real pairs: each pair's outputs bitwise its
+    B = 1 outputs, and K10's equal its twin's at B = 64."""
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(64, cuda_device)
+    h, w = targets.height, targets.width
+    sp = k3.pack_source(sources.points.reshape(64, h, w, 3), sources.mask.reshape(64, h, w),
+                        sources.intensities.reshape(64, h, w))
+    pose = Transform.exp(torch.tensor([0.004, -0.002, 0.003, 0.002, -0.003, 0.001], device=cuda_device))
+    rot, trans = pose.rotation.expand(64, 3, 3).contiguous(), pose.translation.expand(64, 3).contiguous()
+    hp = sp.shape[1] * k3.CHUNK
+    centroids = k3.source_centroids_batched(sp, targets.intrinsics)
+    assert all(_same_bits(g, r) for g, r in zip(centroids, k3.source_centroids_plain(sp, targets.intrinsics)))
+    bases = k3.predict_bases_centroid_batched(rot, trans, centroids, targets.intrinsics, hp)
+    ref = k3.predict_bases_centroid_plain(rot, trans, centroids, targets.intrinsics, hp)
+    assert all(torch.equal(g, r) for g, r in zip(bases, ref))
+    for b in range(64):
+        one = k3.source_centroids_batched(sp[b:b + 1], targets.intrinsics)
+        assert all(_same_bits(o[0], x[b]) for o, x in zip(one, centroids)), b
+        one_bases = k3.predict_bases_centroid_batched(rot[b:b + 1], trans[b:b + 1], one, targets.intrinsics, hp)
+        assert all(torch.equal(o[0], x[b]) for o, x in zip(one_bases, bases)), b
+
+
+def test_band_prediction_rejects_bad_inputs(pyramids, cuda_device):
+    src = pyramids[1][0]
+    sp = _source_pack(src)
+    with pytest.raises(ValueError):
+        k3.source_centroids_batched(sp[:, :, :, :-1], src.intrinsics)  # not contiguous
+    centroids = k3.source_centroids_batched(sp, src.intrinsics)
+    rot, trans = torch.eye(3, device=cuda_device)[None], torch.zeros(1, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        k3.predict_bases_centroid_batched(rot.double(), trans, centroids, src.intrinsics, sp.shape[1] * 16)
+    with pytest.raises(ValueError):
+        k3.predict_bases_centroid_batched(rot, trans, centroids[:3] + (centroids[3][..., :1].contiguous(),),
+                                          src.intrinsics, sp.shape[1] * 16)
+
+
+def test_band_predict_ptxas_report(cuda_device):
+    """K9 and K10 built (the file's -fmad=false among their flags) with no
+    spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    for name in ("source_centroids_kernel", "predict_bases_kernel"):
+        lines = _kernels.ptxas_report(name)
+        assert sum("Compiling entry function" in line for line in lines) == 1, lines
+        assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
+
+
 # -- P1, P2: the roofline probes ------------------------------------------------------
 
 
