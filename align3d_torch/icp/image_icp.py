@@ -47,6 +47,7 @@ from align3d_torch.ops.target_pack import pack_geometry
 from align3d_torch.optim.gauss_newton import GNSystem
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
+from align3d_torch.utils import profiling
 
 
 def _gn_from_aug16(geo_aug: torch.Tensor, col_aug: torch.Tensor) -> tuple[GNSystem, GNSystem]:
@@ -92,22 +93,30 @@ def prepack_batched(
 def _gn_loop(step, initial_rotation, initial_translation, params: IcpParams):
     """The GN loop of B pairs: ``step(rot, trans)`` gives the (geometric,
     colour) 8x8 blocks, (B, 8, 8) each; returns (best_R, best_t,
-    best_residual)."""
+    best_residual). Each iteration is a span ``gn.iter``, its step and
+    solve spans ``gn.step`` and ``gn.solve``."""
     weight, color_weight = _f32(params.weight), _f32(params.color_weight)
     rot, trans = initial_rotation, initial_translation
     best_res = torch.full(rot.shape[:1], torch.inf, dtype=torch.float32, device=rot.device)
     best_rot, best_trans = rot, trans
     for _ in range(params.max_iterations):
-        geom, color = _gn_from_aug16(*step(rot, trans))
+        it = profiling.begin("gn.iter")
+        span = profiling.begin("gn.step")
+        blocks = step(rot, trans)
+        profiling.end(span)
+        span = profiling.begin("gn.solve")
+        geom, color = _gn_from_aug16(*blocks)
         merged = geom.add_weighted(color, weight, color_weight)
         residual = merged.mean_squared_residual()
         new_transform = Transform.exp(merged.solve()) @ Transform(rot, trans)
+        profiling.end(span)
 
         better = residual < best_res
         best_res = torch.where(better, residual, best_res)
         best_rot = torch.where(better[:, None, None], new_transform.rotation, best_rot)
         best_trans = torch.where(better[:, None], new_transform.translation, best_trans)
         rot, trans = new_transform.rotation, new_transform.translation
+        profiling.end(it)
     return best_rot, best_trans, best_res
 
 
@@ -330,5 +339,7 @@ class ImageIcp:
             t.intrinsics,
             self.params,
         )
+        wait = profiling.begin("icp.level_wait")
         self.last_residual = float(best_res)  # the one host sync per level
+        profiling.end(wait)
         return Transform(best_rot, best_trans)

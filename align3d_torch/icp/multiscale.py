@@ -7,6 +7,7 @@ from align3d_torch.icp.image_icp import ImageIcp
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
+from align3d_torch.utils import profiling
 
 
 class MultiscaleAlign:
@@ -25,9 +26,13 @@ class MultiscaleAlign:
             if initial_transform is not None
             else Transform.identity(device=self.target_pyramid[0].device)
         )
-        for params, target, source in reversed(list(zip(self.params, self.target_pyramid, source_pyramid))):
-            icp = ImageIcp(params, target)
-            icp.initial_transform = optim_transform
-            optim_transform = icp.align(source)
-            self.last_residual = icp.last_residual
+        levels = list(zip(self.params, self.target_pyramid, source_pyramid))
+        with profiling.span("icp.align", pairs=1):
+            for level in reversed(range(len(levels))):
+                params, target, source = levels[level]
+                with profiling.span("icp.level", level=level, pairs=1):
+                    icp = ImageIcp(params, target)
+                    icp.initial_transform = optim_transform
+                    optim_transform = icp.align(source)
+                self.last_residual = icp.last_residual
         return optim_transform

@@ -42,6 +42,7 @@ from align3d_torch.parallel import collectives as col
 from align3d_torch.range_image import RangeImage, build_pyramid_impl
 from align3d_torch.se3 import Transform
 from align3d_torch.trajectory import Trajectory, accumulate_scan
+from align3d_torch.utils import profiling
 
 BATCH_AXIS = "pairs"
 
@@ -101,10 +102,14 @@ def multiscale_align_batched(
     relative poses, a batched Transform (B,)."""
     b = target_pyramid[0].points.shape[0]
     pose = initial if initial is not None else Transform.identity((b,), device=target_pyramid[0].device)
-    for level_params, target, source in reversed(list(zip(params, target_pyramid, source_pyramid))):
-        sp, sm, si, _, _ = _flatten_level(source)
-        tp, tm, _, tn, tim = _flatten_level(target)
-        pose, _ = align_batched(pose, sp, sm, si, tp, tm, tn, tim, target.intrinsics, level_params)
+    levels = list(zip(params, target_pyramid, source_pyramid))
+    with profiling.span("icp.align", pairs=b):
+        for level in reversed(range(len(levels))):
+            level_params, target, source = levels[level]
+            with profiling.span("icp.level", level=level, pairs=b):
+                sp, sm, si, _, _ = _flatten_level(source)
+                tp, tm, _, tn, tim = _flatten_level(target)
+                pose, _ = align_batched(pose, sp, sm, si, tp, tm, tn, tim, target.intrinsics, level_params)
     return pose
 
 
@@ -114,7 +119,9 @@ def filter_buckets(filt: BilateralFilter, depths: torch.Tensor, quantum: int = 1
     into depth buckets planned from their nonzero minimum and maximum (one
     wait for the device). Returns the filtered depths and the plan."""
     cmin, cmax = nonzero_min_max(depths)
-    plan = plan_depth_buckets(cmin.cpu().numpy(), cmax.cpu().numpy(), filt.sigma_color, quantum)
+    with profiling.span("batch.plan_wait"):
+        lo, hi = cmin.cpu().numpy(), cmax.cpu().numpy()
+    plan = plan_depth_buckets(lo, hi, filt.sigma_color, quantum)
     return filt.filter_static_buckets(depths, cmin, plan), plan
 
 
@@ -207,11 +214,13 @@ def odometry_step(
     else:
         lo, hi, per = col.share(n - 1, mesh)
     frames = slice(lo, hi + 1)
-    relative = align_frames(intrinsics, frame_scales(depth_scale, frames, device),
-                            *frame_inputs(colors, depths, frames, device), params, pyramid_levels, bilateral_filter,
-                            timer)
-    if mesh is not None:
-        with stage(timer, "gather", relative.rotation):
-            relative = col.gather_poses(mesh, relative, per)[: n - 1]
-    with stage(timer, "scan", relative.rotation):
-        return accumulate_scan(relative)
+    with profiling.span("batch.step", pairs=hi - lo):
+        with profiling.span("batch.upload"):
+            scales = frame_scales(depth_scale, frames, device)
+            colors, depths = frame_inputs(colors, depths, frames, device)
+        relative = align_frames(intrinsics, scales, colors, depths, params, pyramid_levels, bilateral_filter, timer)
+        if mesh is not None:
+            with stage(timer, "gather", relative.rotation):
+                relative = col.gather_poses(mesh, relative, per)[: n - 1]
+        with stage(timer, "scan", relative.rotation):
+            return accumulate_scan(relative)

@@ -19,6 +19,7 @@ from align3d_torch.image import RgbdFrame, py_scale_down, rgb_to_luma_u8
 from align3d_torch.ops import normals as normals_ops
 from align3d_torch.ops import resize as resize_ops
 from align3d_torch.ops.intensity import build_intensity_map
+from align3d_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -131,19 +132,23 @@ class RangeImageBuilder:
 
     def build(self, frame: RgbdFrame, device) -> list[RangeImage]:
         """Upload one frame to ``device`` and build its pyramid there."""
-        depth = torch.from_numpy(frame.image.depth.astype("int32")).to(device)
-        if self.bilateral_filter is not None:
-            depth = self.bilateral_filter.filter(depth)
-        return build_pyramid_impl(
-            self.with_normals,
-            self.with_intensity,
-            self.pyramid_levels,
-            self.blur_sigma,
-            frame.camera,
-            float(frame.image.depth_scale),
-            torch.from_numpy(frame.image.color).to(device),
-            depth,
-        )
+        with profiling.span("build"):
+            with profiling.span("build.upload"):
+                depth = torch.from_numpy(frame.image.depth.astype("int32")).to(device)
+            if self.bilateral_filter is not None:
+                with profiling.span("build.filter"):
+                    depth = self.bilateral_filter.filter(depth)
+            with profiling.span("build.pyramid"):
+                return build_pyramid_impl(
+                    self.with_normals,
+                    self.with_intensity,
+                    self.pyramid_levels,
+                    self.blur_sigma,
+                    frame.camera,
+                    float(frame.image.depth_scale),
+                    torch.from_numpy(frame.image.color).to(device),
+                    depth,
+                )
 
 
 def build_pyramid_impl(
