@@ -29,11 +29,13 @@ PTXAS_LOG = "ptxas.log"  # the compiler's -Xptxas -v report of the library's bui
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# Flags of one source only. The banded ICP step and the band prediction round
-# every product and sum on their own, as their plain twins do, so that the
-# association and the gates decide as the twin's do and the bases are the
-# twin's bits.
-FILE_FLAGS = {"icp_banded.cu": ["-fmad=false"], "band_predict.cu": ["-fmad=false"]}
+# Flags of one source only. The exact and the banded ICP steps, the band
+# prediction and the GN update round every product and sum on their own, as
+# their plain twins do, so that the association and the gates decide as the
+# twin's do, the bases are the twin's bits and the merged systems and
+# residuals too.
+FILE_FLAGS = {"icp_step.cu": ["-fmad=false"], "icp_banded.cu": ["-fmad=false"], "band_predict.cu": ["-fmad=false"],
+              "gn_update.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +82,11 @@ _SIGNATURES = {
         _P, _I, _I, _I,  # source pack, batch, nchunks, groups
         _F, _F, _F, _F,  # cx, cy, f32(1/fx), f32(1/fy)
         _P, _P, _P, _P, _P,  # pbar, rowbar, colbar, cnt, stream
+    ],
+    "a3d_gn_update": [
+        _P, _P, ctypes.c_longlong, _I,  # geometric and colour 8x8 blocks, pair stride (floats), batch
+        _F, _F, _F, _F,  # f32(w1 * w1), f32(w2 * w2), w1, w2
+        _P, _P, _P, _P, _P, _P,  # rot, trans, best_res, best_rot, best_trans (in place), stream
     ],
     "a3d_predict_bases": [
         _P, _P, _P, _P, _P, _P,  # rot, trans, pbar, rowbar, colbar, cnt

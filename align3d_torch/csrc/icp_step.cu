@@ -30,10 +30,15 @@
 // - the next pixel's point, mask and luma are loaded before the current
 //   pixel's arithmetic;
 // - the 58 sums and the pose stay in registers (at most 128 a thread, so
-//   2 blocks of 256 threads an SM, without spills);
-// - the Jacobian's 1/z terms take one reciprocal where the plain step takes
-//   four divisions (the projection, which decides the association, keeps
-//   the plain step's division).
+//   2 blocks of 256 threads an SM, without spills).
+//
+// The per-pixel arithmetic is the plain step's, operation for operation:
+// the file builds with -fmad=false (_kernels.FILE_FLAGS), so no product is
+// contracted into an FMA, and every expression is written in the twin's
+// order (ops/icp_fused.py::icp_step), the Jacobian's 1/z terms as its four
+// divisions. A pixel at a gate's boundary (bounds, distance, normal angle,
+// colour) then falls the same way here as in the twin, and the counts are
+// the twin's; only the sums' order differs.
 //
 // Reduction: each thread keeps the 58 sums of both systems in registers;
 // the block reduces them through a shared-memory transpose, always in the
@@ -217,11 +222,11 @@ icp_step_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
 
     const float r_color = (float)lum * 0.003921569f - value;
     if (!(r_color * r_color <= p.max_color2)) continue;
-    const float inv_z = 1.0f / safe_z;
-    const float dfx = p.fx * inv_z;
-    const float dcx = -px * p.fx * inv_z * inv_z;
-    const float dfy = p.fy * inv_z;
-    const float dcy = -py * p.fy * inv_z * inv_z;
+    const float zz = safe_z * safe_z;
+    const float dfx = p.fx / safe_z;
+    const float dcx = -px * p.fx / zz;
+    const float dfy = p.fy / safe_z;
+    const float dcy = -py * p.fy / zz;
     const float cgx = du * dfx, cgy = dv * dfy, cgz = du * dcx + dv * dcy;
     const float jc[6] = {cgx, cgy, cgz,
                          py * cgz - pz * cgy, pz * cgx - px * cgz, px * cgy - py * cgx};

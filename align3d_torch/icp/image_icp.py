@@ -8,9 +8,9 @@ Three engines, picked by ``IcpParams.engine`` as in the JAX package
   in :mod:`align3d_torch.ops.icp_fused` and is re-exported here.
   :func:`align_impl_batched` runs the GN loop of B frame pairs at once: per
   iteration one fused step over all B pairs (one launch of K1 on the card),
-  then the batched float64 6x6 solve, the SE(3) update and the best-residual
-  select, all on the device, with no wait for it. :func:`align_impl` is its
-  batch of one.
+  then the float64 6x6 solve, the SE(3) update and the best-residual select
+  (one launch of K11), all on the device, with no wait for it.
+  :func:`align_impl` is its batch of one.
 * ``"pallas"`` and ``"pallas_v4"``: the banded association of the TPU
   engines (K7, :mod:`align3d_torch.ops.icp_pallas_v3`; K8,
   :mod:`align3d_torch.ops.icp_pallas_v4`). Each iteration re-predicts the
@@ -44,20 +44,10 @@ from align3d_torch.ops import icp_pallas_v3 as k3
 from align3d_torch.ops import icp_pallas_v4 as k4
 from align3d_torch.ops.icp_fused import _f32, icp_step  # noqa: F401  (icp_step is re-exported)
 from align3d_torch.ops.target_pack import pack_geometry
-from align3d_torch.optim.gauss_newton import GNSystem
+from align3d_torch.optim.gauss_newton import GNState, gn_update
 from align3d_torch.range_image import RangeImage
 from align3d_torch.se3 import Transform
 from align3d_torch.utils import profiling
-
-
-def _gn_from_aug16(geo_aug: torch.Tensor, col_aug: torch.Tensor) -> tuple[GNSystem, GNSystem]:
-    """GNSystems from the two 8x8 augmented blocks [[H, g], [g^T, sum w r^2]]
-    with the count at [7, 7] (leading batch dims pass through)."""
-
-    def system(aug):
-        return GNSystem(aug[..., 0:6, 0:6], aug[..., 0:6, 6], aug[..., 6, 6], aug[..., 7, 7])
-
-    return system(geo_aug), system(col_aug)
 
 
 def prepack_batched(
@@ -94,30 +84,22 @@ def _gn_loop(step, initial_rotation, initial_translation, params: IcpParams):
     """The GN loop of B pairs: ``step(rot, trans)`` gives the (geometric,
     colour) 8x8 blocks, (B, 8, 8) each; returns (best_R, best_t,
     best_residual). Each iteration is a span ``gn.iter``, its step and
-    solve spans ``gn.step`` and ``gn.solve``."""
+    solve spans ``gn.step`` and ``gn.solve``; the solve is
+    :func:`~align3d_torch.optim.gauss_newton.gn_update` (the merge, the f64
+    solve, the SE(3) update and the best-pose select: one launch of K11 on
+    the card)."""
     weight, color_weight = _f32(params.weight), _f32(params.color_weight)
-    rot, trans = initial_rotation, initial_translation
-    best_res = torch.full(rot.shape[:1], torch.inf, dtype=torch.float32, device=rot.device)
-    best_rot, best_trans = rot, trans
+    state = GNState.start(initial_rotation, initial_translation)
     for _ in range(params.max_iterations):
         it = profiling.begin("gn.iter")
         span = profiling.begin("gn.step")
-        blocks = step(rot, trans)
+        blocks = step(state.rot, state.trans)
         profiling.end(span)
         span = profiling.begin("gn.solve")
-        geom, color = _gn_from_aug16(*blocks)
-        merged = geom.add_weighted(color, weight, color_weight)
-        residual = merged.mean_squared_residual()
-        new_transform = Transform.exp(merged.solve()) @ Transform(rot, trans)
+        gn_update(*blocks, weight, color_weight, state)
         profiling.end(span)
-
-        better = residual < best_res
-        best_res = torch.where(better, residual, best_res)
-        best_rot = torch.where(better[:, None, None], new_transform.rotation, best_rot)
-        best_trans = torch.where(better[:, None], new_transform.translation, best_trans)
-        rot, trans = new_transform.rotation, new_transform.translation
         profiling.end(it)
-    return best_rot, best_trans, best_res
+    return state.best_rot, state.best_trans, state.best_res
 
 
 def align_impl_batched(

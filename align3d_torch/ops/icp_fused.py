@@ -10,6 +10,13 @@ target's intensity taps from the bordered intensity map itself. On a CUDA
 tensor it launches ``csrc/icp_step.cu``, one launch per call; on a CPU
 tensor it runs the plain twin, ``pack_intensity_taps`` then ``icp_step``
 plus ``GNSystem.from_residuals``. Nothing else selects between the two.
+
+Every quantity a gate reads (the projection, u and v, the distance, the
+normal-angle dot, the bilinear value and the colour residual) is written
+here as single elementwise operations in one order, which the kernel,
+built with ``-fmad=false``, repeats: so a pixel at a gate's boundary falls
+the same way in both, on the card and against the twin run there. A
+library reduction or GEMM would pick its own order and FMA contraction.
 """
 
 from __future__ import annotations
@@ -53,9 +60,15 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _se3_jacobian(points: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
-    """J = [n, p x n] per residual (reference cost_function.rs:5-15)."""
-    return torch.cat([normals, torch.cross(points, normals, dim=-1)], dim=-1)
+def _se3_jacobian(px, py, pz, nx, ny, nz) -> torch.Tensor:
+    """J = [n, p x n] per residual (reference cost_function.rs:5-15), the
+    cross product as the kernel forms it."""
+    return torch.stack([nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx], dim=-1)
+
+
+def _dot3(ax, ay, az, bx, by, bz) -> torch.Tensor:
+    """``(ax bx + ay by) + az bz``, the kernel's order."""
+    return ax * bx + ay * by + az * bz
 
 
 def icp_step(
@@ -71,11 +84,13 @@ def icp_step(
     params: IcpParams,
 ) -> tuple[GNSystem, GNSystem]:
     """One GN accumulation pass; returns the (geometric, colour) systems."""
-    p = transform.apply(source_points)
-    z = p[..., 2]
-    safe_z = torch.where(z == 0.0, 1e-12, z)
-    u = p[..., 0] * intrinsics.fx / safe_z + intrinsics.cx
-    v = p[..., 1] * intrinsics.fy / safe_z + intrinsics.cy
+    # R p + t, each output ((r0 x + r1 y) + r2 z) + t.
+    x, y, z = source_points.unbind(-1)
+    r, t = transform.rotation, transform.translation
+    px, py, pz = (r[i, 0] * x + r[i, 1] * y + r[i, 2] * z + t[i] for i in range(3))
+    safe_z = torch.where(pz == 0.0, 1e-12, pz)
+    u = px * intrinsics.fx / safe_z + intrinsics.cx
+    v = py * intrinsics.fy / safe_z + intrinsics.cy
 
     u_int = torch.trunc(u + 0.5)
     v_int = torch.trunc(v + 0.5)
@@ -85,19 +100,18 @@ def icp_step(
     ui = torch.nan_to_num(u_int, nan=0.0).clamp(0, w - 1).to(torch.int64)
     vi = torch.nan_to_num(v_int, nan=0.0).clamp(0, h - 1).to(torch.int64)
     geo = target_geo[vi * w + ui]
-    tp = geo[:, 0:3]
-    tn = geo[:, 3:6]
+    tnx, tny, tnz = geo[:, 3], geo[:, 4], geo[:, 5]
     tvalid = geo[:, 6] > 0.0
 
     valid = source_mask & inbounds & tvalid
-    diff = tp - p
-    dist_ok = torch.sum(diff * diff, dim=-1) <= _f32(params.max_distance * params.max_distance)
-    angle = torch.abs(torch.arccos(torch.sum(p * tn, dim=-1)))
+    dx, dy, dz = geo[:, 0] - px, geo[:, 1] - py, geo[:, 2] - pz
+    dist_ok = _dot3(dx, dy, dz, dx, dy, dz) <= _f32(params.max_distance * params.max_distance)
+    angle = torch.abs(torch.arccos(_dot3(px, py, pz, tnx, tny, tnz)))
     angle_rejected = angle >= _f32(params.max_normal_angle)  # NaN -> False
 
     w_geom = (valid & dist_ok & ~angle_rejected).to(torch.float32)
-    residual_geom = torch.sum(diff * tn, dim=-1)
-    jac_geom = _se3_jacobian(p, tn)
+    residual_geom = _dot3(dx, dy, dz, tnx, tny, tnz)
+    jac_geom = _se3_jacobian(px, py, pz, tnx, tny, tnz)
     if params.huber_delta is not None:
         w_geom = w_geom * huber_weight(residual_geom, params.huber_delta)
     geom = GNSystem.from_residuals(jac_geom, residual_geom, w_geom)
@@ -112,16 +126,16 @@ def icp_step(
     zz = safe_z * safe_z
     # full_like: a true division (``scalar / tensor`` multiplies by a reciprocal).
     dfx = torch.full_like(safe_z, intrinsics.fx) / safe_z
-    dcx = -p[..., 0] * intrinsics.fx / zz
+    dcx = -px * intrinsics.fx / zz
     dfy = torch.full_like(safe_z, intrinsics.fy) / safe_z
-    dcy = -p[..., 1] * intrinsics.fy / zz
-    color_gradient = torch.stack([du * dfx, dv * dfy, du * dcx + dv * dcy], dim=-1)
+    dcy = -py * intrinsics.fy / zz
+    cgx, cgy, cgz = du * dfx, dv * dfy, du * dcx + dv * dcy
     residual_color = source_color - target_color
     color_ok = residual_color * residual_color <= _f32(
         params.max_color_distance * params.max_color_distance
     )
     w_color = w_geom * color_ok.to(torch.float32)
-    color = GNSystem.from_residuals(_se3_jacobian(p, color_gradient), residual_color, w_color)
+    color = GNSystem.from_residuals(_se3_jacobian(px, py, pz, cgx, cgy, cgz), residual_color, w_color)
     return geom, color
 
 

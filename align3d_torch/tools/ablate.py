@@ -78,6 +78,10 @@ line), each made in this one process, so that their times compare:
   pointing at an earlier ``ops/icp_pallas_v3.py`` its functions beside;
   and the device activities of one ``pallas_v4`` align's GN loop and
   prepack at B = 64 on the kernels and on the twins (or the earlier code).
+* **K11, the GN update** (``gn_update``): the kernel and its twin on the
+  blocks of K1 and of K8 at B = 1 and B = 64 (device ms, ms a call, host ms
+  a call), and the device activities and host ms of an exact align of one
+  pair and a ``pallas_v4`` align of 64 pairs, with K11 and with the twin.
 
 Each time is given twice: device ms per call from ``torch.profiler``
 (``tools/roofline.py::device_ms``), and ms per call of back-to-back calls
@@ -780,9 +784,106 @@ def band_prediction(device) -> dict:
     return out
 
 
+#: K11's bytes a pair: the 29 floats it reads of each block, the state it
+#: reads (pose, best residual: 13 floats) and writes (pose, best pose and
+#: residual: 25 floats).
+GN_UPDATE_BYTES = (2 * 29 + 13 + 25) * 4
+
+
+def gn_update(device) -> dict:
+    """K11 (``optim/gauss_newton.py::gn_update``) on the blocks of K1 and of
+    K8 at 640x480, level 0, pose ``BANDED_TWIST``: the first real pair
+    (B = 1) and the 64 real pairs (B = 64). Device ms a launch, ms a call of
+    back-to-back calls and host ms a call (median of 20, each ended by a
+    synchronise) of the kernel and of its twin on the card (the PyTorch ops
+    it replaces), the twin's device activities a call, the bytes. Then one
+    exact-engine align of the first pair and one ``pallas_v4`` align of the
+    64 pairs, 10 GN iterations each: the device activities of the GN loop
+    and its host ms, with K11 and with the twin patched in, in the order
+    kernel, twin, twin, kernel."""
+    from align3d_torch.icp import image_icp as ii
+    from align3d_torch.icp.params import IcpParams
+    from align3d_torch.ops import icp_fused
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.optim import gauss_newton as gn
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools import roofline as rl
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(64, device)
+    intr, pairs = targets.intrinsics, sources.points.shape[0]
+    flat = (sources.points.reshape(pairs, -1, 3), sources.mask.reshape(pairs, -1),
+            sources.intensities.reshape(pairs, -1), targets.points.reshape(pairs, -1, 3),
+            targets.mask.reshape(pairs, -1), targets.normals.reshape(pairs, -1, 3), targets.intensity_map)
+    pose = Transform.exp(torch.tensor(BANDED_TWIST, device=device))
+    engines = {"k1": IcpParams(max_iterations=10), "k8": IcpParams(max_iterations=10, engine="pallas_v4")}
+    out = {"bytes_a_pair": GN_UPDATE_BYTES, "shapes": {}}
+    for shape, b in (("batch1", 1), ("batch64", pairs)):
+        rot, trans = pose.rotation.expand(b, 3, 3), pose.translation.expand(b, 3)
+        calls = CALLS["frame"] if b == 1 else CALLS["series"]
+        part = [t[:b] for t in flat]
+        for engine, params in engines.items():
+            if engine == "k1":
+                packed = ii.prepack_batched(*part)
+                aug = icp_fused.icp_step_fused(rot.contiguous(), trans.contiguous(), *packed, intr, params)
+                blocks = aug[:, 0], aug[:, 1]
+            else:
+                sp, tp, centroids, h, w = ii.prepack_v4_batched(*part, intr)
+                bases = k3.predict_bases_centroid_batched(rot.contiguous(), trans.contiguous(), centroids, intr,
+                                                          sp.shape[1] * k3.CHUNK)
+                blocks = k4.icp_step_pallas_batched(rot.contiguous(), trans.contiguous(), *bases, sp, tp, intr, h, w,
+                                                    k3.params_to_tuple(params))[:2]
+            w1, w2 = float(np.float32(params.weight)), float(np.float32(params.color_weight))
+            state, twin = gn.GNState.start(rot, trans), gn.GNState.start(rot, trans)
+            fns = {"k11": lambda: gn.gn_update(*blocks, w1, w2, state),
+                   "k11_plain": lambda: gn.gn_update_plain(*blocks, w1, w2, twin)}
+            row = {"pairs": b, "bytes": b * GN_UPDATE_BYTES,
+                   "bound_ms": b * GN_UPDATE_BYTES / rl.PEAK_HBM_BYTES * 1e3}
+            for name, fn in fns.items():
+                ms, acts = rl.device_ms(fn, calls, "gn_update_kernel" if name == "k11" else None)
+                row[f"{name}_ms"] = ms
+                row[f"{name}_activities_a_call"] = len(acts) / calls
+                row[f"{name}_call_ms"] = _events_ms(fn, calls)
+                row[f"{name}_host_ms"] = sorted(_host_ms(fn, 20))[10]
+            out["shapes"][f"{engine}_{shape}"] = row
+
+    aligns = out["align_gn_loop"] = {}
+    names = {"k1": "icp_step_kernel", "k8": "icp_banded_kernel<true>", "k11": "gn_update_kernel"}
+    for engine, b in (("k1", 1), ("k8", pairs)):
+        params, part = engines[engine], [t[:b] for t in flat]
+        ident = Transform.identity((b,), device=device)
+        if engine == "k1":
+            packed = ii.prepack_batched(*part)
+
+            def loop():
+                return ii.align_impl_batched(ident.rotation, ident.translation, packed, intr, params)
+        else:
+            packed = ii.prepack_v4_batched(*part, intr)
+
+            def loop():
+                return ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], intr,
+                                                              *packed[3:], params)
+        rows = aligns[f"{engine}_batch{b}"] = {}
+        for label in ("kernel", "twin", "twin", "kernel"):  # the host's drift falls on both alike
+            ii.gn_update = gn.gn_update_plain if label == "twin" else gn.gn_update
+            try:
+                if label not in rows:
+                    acts = _activities(loop, names)
+                    rows[label] = {"gn_loop": acts, "gn_loop_host_ms": [],
+                                   "activities_per_iteration": acts["activities"] / params.max_iterations}
+                rows[label]["gn_loop_host_ms"] += _host_ms(loop, 5)
+            finally:
+                ii.gn_update = gn.gn_update
+        for row in rows.values():
+            row["gn_loop_host_ms"].sort()
+    return out
+
+
 SECTIONS = {"splat_exact": splat_exact, "tap_packs": tap_packs, "slice_composition": slice_composition,
             "slice_pixels": slice_pixels, "mesh_designs": mesh_designs, "mesh_host": mesh_host,
-            "table_gather": table_gather, "banded_sections": banded_sections, "band_prediction": band_prediction}
+            "table_gather": table_gather, "banded_sections": banded_sections, "band_prediction": band_prediction,
+            "gn_update": gn_update}
 
 
 def main(argv: list[str] | None = None) -> int:

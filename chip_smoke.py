@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
    the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
-   K3 (its four instantiations), K4, K5, K6, K7/K8, K9 and K10.
+   K3 (its four instantiations), K4, K5, K6, K7/K8, K9, K10 and K11.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
    ``torch.profiler`` (for K1-K3 and K5 checked to be one launch of the
@@ -33,7 +33,10 @@ Run from the root of a checkout. Phases, each of which fails the run:
    ``grid_sample``) at that shape; K2 over each deep bucket of the mixed
    series at the bucket's depth, bitwise against its plain twin; K3 (both
    forms) over the 29 sample2 frames of the mixed series (gd > 128) against
-   its plain twins.
+   its plain twins. K11 on the blocks of real K1 and K8 steps, sample1
+   frames 0 <- 1 (B = 1) and the 64 real pairs (B = 64), level 0, four GN
+   iterations each: the best residuals and the select decisions equal the
+   twin's, the poses within GN_UPDATE_ATOL, one launch an update.
 4. Drive each path with its kernels' launch counts reset just before and
    read just after; the filter paths (4a, 4d) must slice through K3's form
    (b) only, with no launch of form (a) and no ``_normalize`` pass:
@@ -248,6 +251,8 @@ SLICE_CAST_MAX = 1  # ... and after the truncating cast; form (b) is held bitwis
 ICP_COUNT_SHARE = 1e-4  # K1: count within 0.01% of the valid pixels
 ICP_REL = 1e-4  # K1: H and g within 1e-4 x max|entry|
 K1_TWIST = [0.004, -0.002, 0.003, 0.002, -0.003, 0.001]  # the pose K1 is held against its twin at
+GN_UPDATE_ATOL = 2e-6  # K11: poses within 2e-6 of its twin's (rotation absolute, translation relative)
+GN_UPDATE_ITERATIONS = 4  # K11: GN iterations a shape is held to its twin over
 POSE_ATOL = 2e-3  # poses against the golden: rad / m
 MEAN_ANGLE_DEG, MEAN_TRANS = 0.5, 0.01  # tests/test_odometry_accuracy.py bound
 
@@ -293,7 +298,8 @@ PROFILED_FRAMES = 3  # frames 1..3 of sample1 in phase 5
 KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "slice": ("bilateral_slice",),
                 "mesh": ("mesh_normals",), "sphere": ("column_mean",),
                 "banded": ("icp_banded_kernel<false>", "icp_banded_kernel<true>"),
-                "centroids": ("source_centroids_kernel",), "predict": ("predict_bases_kernel",)}
+                "centroids": ("source_centroids_kernel",), "predict": ("predict_bases_kernel",),
+                "k11": ("gn_update_kernel",)}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
 PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
@@ -301,7 +307,7 @@ PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
                 "K3": ["align3d_tpu/ops/bilateral.py:598"],
                 "K4": ["align3d_tpu/ops/nn_banded.py:370", "align3d_tpu/ops/nn_banded.py:459"],
                 "K5": ["align3d_tpu/ops/mesh.py:356"], "P1": ["tools/roofline_v4.py:68"],
-                "P2": ["tools/roofline_v4.py:118"]}
+                "P2": ["tools/roofline_v4.py:118"], "K11": []}
 PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded",
                "banded": "icp_banded_kernel"}
 
@@ -540,6 +546,107 @@ def check_icp(torch, pyr0, pyr1):
             b = bound(icp_step_bytes(args[3], h, w), 300 * valid)
     return worst_rel, *timing, b, {"library_ms": None, "library_reason":
                                    "no PyTorch call computes the gated two-system GN accumulation"}
+
+
+def check_gn_update(torch, pyr0, pyr1) -> tuple:
+    """Phase 3: K11 against its twin on the card, on the blocks that real
+    K1 and K8 steps hand it: sample1 frames 0 <- 1 (B = 1, level 0 of
+    check_icp's pyramids) and the 64 real pairs of ``series.real_pairs``
+    (B = 64), GN_UPDATE_ITERATIONS iterations from K1_TWIST's pose each.
+    Every iteration: NaN in the same places, the best residuals and the
+    select decisions equal, the poses within GN_UPDATE_ATOL (rotation
+    absolute, translation of each pair's largest entry), one launch. Returns
+    (worst error, K11's timings, the twin's, bound, library) at B = 1 on K1's
+    blocks, and the rows of the four shapes."""
+    from align3d_torch.icp import image_icp as ii
+    from align3d_torch.icp.params import MsIcpParams
+    from align3d_torch.ops import icp_fused
+    from align3d_torch.ops import icp_pallas_v3 as k3
+    from align3d_torch.ops import icp_pallas_v4 as k4
+    from align3d_torch.optim import gauss_newton as gn
+    from align3d_torch.se3 import Transform
+    from align3d_torch.tools.ablate import GN_UPDATE_BYTES
+    from align3d_torch.tools.series import real_pairs
+
+    fields = ("rot", "trans", "best_res", "best_rot", "best_trans")
+
+    def stepper(engine, tgt, src, b):
+        n = tgt.height * tgt.width
+        args = (src.points.reshape(b, n, 3), src.mask.reshape(b, n), src.intensities.reshape(b, n),
+                tgt.points.reshape(b, n, 3), tgt.mask.reshape(b, n), tgt.normals.reshape(b, n, 3),
+                tgt.intensity_map.reshape(b, tgt.height + 2, tgt.width + 2))
+        if engine == "k1":
+            params = MsIcpParams.default()[0]
+            packed = ii.prepack_batched(*args)
+
+            def step(rot, trans):
+                aug = icp_fused.icp_step_fused(rot, trans, *packed, tgt.intrinsics, params)
+                return aug[:, 0], aug[:, 1]
+            return step, params
+        params = MsIcpParams.default_tpu("pallas_v4")[0]
+        sp, tp, centroids, h, w = ii.prepack_v4_batched(*args, tgt.intrinsics)
+
+        def step(rot, trans):
+            bases = k3.predict_bases_centroid_batched(rot, trans, centroids, tgt.intrinsics, sp.shape[1] * k3.CHUNK)
+            return k4.icp_step_pallas_batched(rot, trans, *bases, sp, tp, tgt.intrinsics, h, w,
+                                              k3.params_to_tuple(params))[:2]
+        return step, params
+
+    sources, targets = real_pairs(64, DEVICE)
+    pose = Transform.exp(torch.tensor(K1_TWIST, device=DEVICE))
+    rows, worst, timing = {}, 0.0, None
+    for tgt, src, b in ((pyr0[0], pyr1[0], 1), (targets, sources, sources.points.shape[0])):
+        shape = f"batch{b}"
+        for engine in ("k1", "k8"):
+            label = f"K11 on {engine.upper()}'s blocks at B = {b}"
+            step, params = stepper(engine, tgt, src, b)
+            w1, w2 = icp_fused._f32(params.weight), icp_fused._f32(params.color_weight)
+            state = gn.GNState.start(pose.rotation.expand(b, 3, 3), pose.translation.expand(b, 3))
+            rot_err = trans_err = 0.0
+            selects = 0
+            for it in range(GN_UPDATE_ITERATIONS):
+                blocks = step(state.rot, state.trans)
+                ref = gn.GNState(*(getattr(state, f).clone() for f in fields))
+                gn.gn_update_plain(*blocks, w1, w2, ref)
+                best, launches = state.best_res.clone(), gn.LAUNCHES
+                gn.gn_update(*blocks, w1, w2, state)
+                torch.cuda.synchronize()
+                if gn.LAUNCHES != launches + 1:
+                    raise AssertionError(f"{label}: {gn.LAUNCHES - launches} launches for one update")
+                for f in fields:
+                    if not torch.equal(torch.isnan(getattr(state, f)), torch.isnan(getattr(ref, f))):
+                        raise AssertionError(f"{label}, iteration {it}: NaN in other places of {f} than the twin's")
+                chosen, chosen_ref = state.best_res != best, ref.best_res != best
+                if not (torch.equal(state.best_res, ref.best_res) and torch.equal(chosen, chosen_ref)):
+                    raise AssertionError(f"{label}, iteration {it}: best residuals or selects differ from the twin's")
+                selects += int(chosen.sum())
+                for r in ("rot", "best_rot"):
+                    rot_err = max(rot_err, float((getattr(state, r) - getattr(ref, r)).nan_to_num(0.0).abs().max()))
+                for t in ("trans", "best_trans"):
+                    gap = (getattr(state, t) - getattr(ref, t)).nan_to_num(0.0).abs().amax(-1)
+                    scale = getattr(ref, t).nan_to_num(0.0).abs().amax(-1).clamp(min=torch.finfo(torch.float32).tiny)
+                    trans_err = max(trans_err, float((gap / scale).max()))
+            if not (rot_err <= GN_UPDATE_ATOL and trans_err <= GN_UPDATE_ATOL):
+                raise AssertionError(f"{label}: poses {rot_err:.2e} rad / {trans_err:.2e} relative from the twin's")
+            if selects < b:
+                raise AssertionError(f"{label}: {selects} selects in {GN_UPDATE_ITERATIONS} iterations")
+            worst = max(worst, rot_err, trans_err)
+            blocks = step(state.rot, state.trans)
+            kstate = gn.GNState(*(getattr(state, f).clone() for f in fields))
+            pstate = gn.GNState(*(getattr(state, f).clone() for f in fields))
+            kt = timings(torch, lambda: gn.gn_update(*blocks, w1, w2, kstate), kernel=KERNEL_NAMES["k11"][0])
+            pt = timings(torch, lambda: gn.gn_update_plain(*blocks, w1, w2, pstate))
+            rows[f"{engine}_{shape}"] = {"pairs": b, "rot_err": rot_err, "trans_rel_err": trans_err,
+                                         "selects": selects, "ms": kt[0], "call_ms": kt[1], "plain_ms": pt[0],
+                                         "plain_call_ms": pt[1], **bound(b * GN_UPDATE_BYTES, 0)}
+            print(f"{label}: {GN_UPDATE_ITERATIONS} iterations, {selects} selects, best residuals and selects "
+                  f"equal the twin's, poses within {rot_err:.2e} rad / {trans_err:.2e} relative; "
+                  f"{kt[0]} ms a launch against the twin's {pt[0]} ms")
+            if engine == "k1" and b == 1:
+                timing = (kt, pt, bound(GN_UPDATE_BYTES, 0))
+    del sources, targets
+    return (worst, *timing, {"library_ms": None, "library_reason":
+                             "no PyTorch call does the merge, the solve, the SE(3) update and the select"}), rows
 
 
 def check_icp_blocks(torch, got, ref, mask, label: str) -> float:
@@ -1036,7 +1143,7 @@ def throughput_path(torch, real, mixed, counters) -> dict:
         launches = read_counts(counters)
         plan = bucket_plan(real.depths, filt)
         want = {"icp": STEP_ITERATIONS, "splat": len(plan) if f else 0, "slice": len(plan) if f else 0,
-                "slice_a": 0, "normalize": 0}
+                "slice_a": 0, "normalize": 0, "k11": STEP_ITERATIONS}
         print(f"throughput path, bilateral {label}: launches {launches} (expected {want}; buckets "
               + ", ".join(f"{g}x{len(i)}" for g, i, _ in plan) + ")")
         if any(launches[k] != v for k, v in want.items()):
@@ -1259,7 +1366,7 @@ def data_path(torch, dataset, builder, counters, slamtb_launches: dict) -> dict:
 
     def expected(frames_built: int, pairs: int) -> dict:
         return {"icp": STEP_ITERATIONS * pairs, "splat": frames_built, "slice": frames_built, "slice_a": 0,
-                "normalize": 0}
+                "normalize": 0, "k11": STEP_ITERATIONS * pairs}
 
     def run_timed(ds):
         """run_odometry over the first FRAMES frames; host ms of each frame
@@ -1575,6 +1682,7 @@ def palindrome_path(torch, dataset, counters) -> tuple[dict, list]:
     # pair, and MsIcpParams.default()'s 70 a closure; no filter, so no K2/K3.
     want = {"icp": (len(PALINDROME) - 1) * 3 * CHEAP_ITERATIONS + STEP_ITERATIONS * len(closures),
             "splat": 0, "slice": 0, "slice_a": 0, "normalize": 0}
+    want["k11"] = want["icp"]  # K11 once a GN iteration, beside K1
     raw_t, ref_t = float(raw.metrics.translation), float(refined.metrics.translation)
     raw_a, ref_a = math.degrees(float(raw.metrics.angle)), math.degrees(float(refined.metrics.angle))
     poses = refined.trajectory.camera_to_world
@@ -1631,6 +1739,7 @@ def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
     # build one K2 and one K3 (form (b)); 70 K1 a pair and a closure.
     want = {"icp": STEP_ITERATIONS * (n - 1 + len(closures)), "splat": n + 2 * len(closures),
             "slice": n + 2 * len(closures), "slice_a": 0, "normalize": 0}
+    want["k11"] = want["icp"]
     from_cli = Trajectory.from_tum(text).to(DEVICE).camera_to_world
     same_text = text == direct.trajectory.to_tum()
     gap = max_pose_gap(torch, from_cli, direct.trajectory.camera_to_world)
@@ -1778,7 +1887,8 @@ def launch_want(real, filt) -> dict:
     from align3d_torch.tools.series import bucket_plan
 
     buckets = len(bucket_plan(real.depths, filt))
-    return {"icp": STEP_ITERATIONS, "splat": buckets, "slice": buckets, "slice_a": 0, "normalize": 0}
+    return {"icp": STEP_ITERATIONS, "splat": buckets, "slice": buckets, "slice_a": 0, "normalize": 0,
+            "k11": STEP_ITERATIONS}
 
 
 def distribution_paths(torch, mesh, counters, device) -> dict:
@@ -1871,6 +1981,7 @@ def distribution_rank(rank: int, world: int, store: str, out_dir: str, device: s
 
     from align3d_torch.ops import bilateral as bil
     from align3d_torch.ops import icp_fused
+    from align3d_torch.optim import gauss_newton
     from align3d_torch.parallel import multihost
 
     torch.set_num_threads(2)
@@ -1880,7 +1991,7 @@ def distribution_rank(rank: int, world: int, store: str, out_dir: str, device: s
         mesh = multihost.global_mesh(devices=device)
         counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
                     "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
-                    "normalize": (bil, "NORMALIZE_PASSES")}
+                    "normalize": (bil, "NORMALIZE_PASSES"), "k11": (gauss_newton, "LAUNCHES")}
         out = distribution_paths(torch, mesh, counters, torch.device(device))
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
@@ -2060,7 +2171,8 @@ def distribution(torch, dataset, counters, trip_activities_8c=None) -> tuple[dic
     for r in ranks:  # K1 once a GN iteration over the rank's pairs; K2/K3 once a bucket of its frames
         for name in ("step", "sequence"):
             got = r[name]["launches"]
-            if (got["icp"] != STEP_ITERATIONS or min(got["splat"], got["slice"]) < 1
+            if (got["icp"] != STEP_ITERATIONS or got["k11"] != STEP_ITERATIONS
+                    or min(got["splat"], got["slice"]) < 1
                     or got["slice_a"] or got["normalize"]):
                 failures.append(f"9 (world 2): rank {r['rank']}'s {name} launched {got}")
     out["phase_s"] = time.perf_counter() - t0
@@ -2418,7 +2530,7 @@ def viz_cli(torch, counters, failures: list, odometry_launches: dict) -> dict:
         failures.append("10d: viewer -o p.png differs from the direct render")
     if out["viewer_animate_frames"] != VIZ_VIEWS:
         failures.append(f"10d: viewer --animate wrote {out['viewer_animate_frames']} frames")
-    want = {**odometry_launches, "slice_a": 0, "normalize": 0, "mesh": 0}
+    want = {**odometry_launches, "slice_a": 0, "normalize": 0, "mesh": 0, "k11": odometry_launches["icp"]}
     if out["odometry_show_launches"] != want:
         failures.append(f"10d: odometry --show launched {out['odometry_show_launches']}, expected {want}")
     if out["odometry_show_png"]["shape"] != [480, 640, 4] or out["odometry_show_png"]["lit_pixels"] < 1000:
@@ -3007,11 +3119,13 @@ def banded(torch, dataset, builder, counters) -> tuple[dict, list]:
 
     golden = Trajectory.from_tum(GOLDEN_V4.read_text()).to(DEVICE)
     # A pair's launches: K10 once a banded GN iteration, K9 once a banded level.
-    runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"), {"k8": 70, "k9": 3, "k10": 70}),
+    # K11 once a GN iteration of either engine.
+    runs = (("pallas_v4", BANDED_FRAMES, MsIcpParams.default_tpu("pallas_v4"),
+             {"k8": 70, "k9": 3, "k10": 70, "k11": 70}),
             ("pallas_v4_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas_v4", coarse_exact=True),
-             {"k8": 40, "icp": 30, "k9": 2, "k10": 40}),
+             {"k8": 40, "icp": 30, "k9": 2, "k10": 40, "k11": 70}),
             ("pallas_coarse_exact", BANDED_CUT, MsIcpParams.default_tpu("pallas", coarse_exact=True),
-             {"k7": 40, "icp": 30, "k9": 2, "k10": 40}))
+             {"k7": 40, "icp": 30, "k9": 2, "k10": 40, "k11": 70}))
     for name, frames, ms_params, want in runs:
         try:
             got, result = banded_odometry(torch, dataset, builder, counters, frames, ms_params, want)
@@ -3113,6 +3227,7 @@ def main() -> int:
     from align3d_torch.odometry import run_odometry
     from align3d_torch.ops import bilateral as bil
     from align3d_torch.ops import icp_fused
+    from align3d_torch.optim import gauss_newton
     from align3d_torch.range_image import RangeImageBuilder
     from align3d_torch.trajectory import Trajectory
 
@@ -3122,8 +3237,11 @@ def main() -> int:
     splat = check_splat(torch, bil, depth0)
     slice_, slice_a = check_slice(torch, bil, depth0)
     builder = RangeImageBuilder(bilateral_filter=bil.BilateralFilter())
-    icp = check_icp(torch, builder.build(frame0, "cuda"), builder.build(frame1, "cuda"))
-    done("phase 3, K1-K3")
+    pyr0, pyr1 = builder.build(frame0, "cuda"), builder.build(frame1, "cuda")
+    icp = check_icp(torch, pyr0, pyr1)
+    gn_update, gn_update_rows = check_gn_update(torch, pyr0, pyr1)
+    del pyr0, pyr1
+    done("phase 3, K1-K3, K11")
 
     import numpy as np
 
@@ -3168,14 +3286,17 @@ def main() -> int:
 
     # -- 4. the main path ----------------------------------------------------
     subset = SubsetDataset(dataset, range(FRAMES))
-    icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.NORMALIZE_SLICE_LAUNCHES = 0
+    icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.NORMALIZE_SLICE_LAUNCHES = gauss_newton.LAUNCHES = 0
     bil.SLICE_LAUNCHES = bil.NORMALIZE_PASSES = 0
     first = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
-    launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.NORMALIZE_SLICE_LAUNCHES}
+    launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.NORMALIZE_SLICE_LAUNCHES,
+                "k11": gauss_newton.LAUNCHES}
     print(f"main-path launches: {launches}; K3 form (a) launches {bil.SLICE_LAUNCHES}, "
           f"_normalize passes {bil.NORMALIZE_PASSES}")
     if min(launches.values()) <= 0:
         return fail(f"a kernel of the main path never launched: {launches}")
+    if launches["k11"] != launches["icp"]:
+        return fail(f"K11 launched otherwise than once a GN iteration: {launches}")
     if bil.SLICE_LAUNCHES or bil.NORMALIZE_PASSES:
         return fail("the filter normalized a grid or sliced through K3's form (a)")
     second = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
@@ -3220,7 +3341,7 @@ def main() -> int:
     # -- 4d. the throughput path ---------------------------------------------
     counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
                 "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
-                "normalize": (bil, "NORMALIZE_PASSES")}
+                "normalize": (bil, "NORMALIZE_PASSES"), "k11": (gauss_newton, "LAUNCHES")}
     throughput = throughput_path(torch, real, mixed, counters)
     print("throughput path: " + json.dumps(throughput))
     done("phase 4d")
@@ -3337,7 +3458,7 @@ def main() -> int:
 
     banded_counters = {"icp": (icp_fused, "LAUNCHES"), "k7": (icp_pallas_v3, "LAUNCHES"),
                        "k8": (icp_pallas_v4, "LAUNCHES"), "k9": (icp_pallas_v3, "CENTROIDS_LAUNCHES"),
-                       "k10": (icp_pallas_v3, "PREDICT_LAUNCHES")}
+                       "k10": (icp_pallas_v3, "PREDICT_LAUNCHES"), "k11": (gauss_newton, "LAUNCHES")}
     banded_out, failures = banded(torch, dataset, builder, banded_counters)
     print("banded: " + json.dumps(banded_out))
     if failures:
@@ -3419,6 +3540,13 @@ def main() -> int:
                   "max_abs_err": throughput["k1_batch64_max_rel_err_plain"],
                   **bound(k1_64["bytes"], 300 * k1_64["gathers"] / 2)}}),
         *(banded_entry(key) for key in ("K7", "K8")),
+        entry("gn_update (K11)", "align3d_torch/csrc/gn_update.cu", "align3d_tpu/icp/image_icp.py", "k11",
+              gn_update, "max of |kernel - plain| of the rotations and of the translations over the largest "
+              "entry, over GN_UPDATE_ITERATIONS iterations (best residuals and selects equal)",
+              ptxas=ptxas["k11"], replaces_note="the GN loop's merge, f64 solve, SE(3) update and select "
+              "(plain jnp in the jitted align); no TPU kernel",
+              shape="sample1 frames 0 <- 1, K1's blocks at level 0", launches_by_path=paths("k11"),
+              shapes=gn_update_rows),
         *(band_entry(key, banded_out, launches[key.lower()], paths(key.lower()),
                      ptxas["centroids" if key == "K9" else "predict"]) for key in ("K9", "K10")),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",

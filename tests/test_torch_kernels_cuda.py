@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from align3d_torch.icp import image_icp
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.io import read_off
 from align3d_torch.io.datasets import SlamTbDataset
@@ -21,6 +22,7 @@ from align3d_torch.ops import icp_fused, mesh, nn_banded
 from align3d_torch.ops import icp_pallas_v3 as k3
 from align3d_torch.ops import icp_pallas_v4 as k4
 from align3d_torch.ops.target_pack import pack_geometry
+from align3d_torch.optim import gauss_newton as gn
 from align3d_torch.range_image import RangeImageBuilder
 from align3d_torch.se3 import Transform
 
@@ -543,6 +545,34 @@ def test_icp_step_batch64_bitwise_against_single(cuda_device):
         assert torch.equal(one[0], batched[b]), b
 
 
+def test_icp_step_kernel_gate_counts_equal_twin(cuda_device):
+    """K1's per-pixel arithmetic is its twin's (-fmad=false, the twin's
+    order), so across the 64 real pairs at three poses every gate decides
+    as the twin's does: both systems' counts are equal, and the sums stay
+    within 1e-4 of the twin's largest entry. Huber off: the weight sum at
+    [7, 7] is then a count, exact in any order of addition."""
+    from align3d_torch.icp.image_icp import prepack_batched
+    from align3d_torch.tools.series import real_pairs
+
+    sources, targets = real_pairs(64, cuda_device)
+    n = targets.height * targets.width
+    packed = prepack_batched(
+        sources.points.reshape(64, n, 3), sources.mask.reshape(64, n), sources.intensities.reshape(64, n),
+        targets.points.reshape(64, n, 3), targets.mask.reshape(64, n), targets.normals.reshape(64, n, 3),
+        targets.intensity_map,
+    )
+    params = MsIcpParams.default()[0].replace(huber_delta=None)
+    for twist in ([0.0] * 6, [0.004, -0.002, 0.003, 0.002, -0.003, 0.001], [-0.01, 0.006, 0.002, 0.008, 0.0, -0.004]):
+        pose = Transform.exp(torch.tensor(twist, device=cuda_device))
+        rot, trans = pose.rotation.expand(64, 3, 3).contiguous(), pose.translation.expand(64, 3).contiguous()
+        args = (rot, trans, *packed, targets.intrinsics, params)
+        got, ref = icp_fused.icp_step_fused(*args), icp_fused.icp_step_plain(*args)
+        assert torch.equal(got[:, :, 7, 7], ref[:, :, 7, 7]), twist
+        for s in range(2):
+            g, r = got[:, s, :7, :7], ref[:, s, :7, :7]
+            assert bool(((g - r).abs().amax((-1, -2)) <= 1e-4 * r.abs().amax((-1, -2))).all()), (twist, s)
+
+
 def test_icp_step_kernel_rearms_across_batch_sizes(cuda_device):
     """K1 launched back to back at B = 64, 1, 3, 64: each call is bitwise a
     repeat of itself (the last block of each pair re-arms its arrival
@@ -835,6 +865,270 @@ def test_band_predict_ptxas_report(cuda_device):
         lines = _kernels.ptxas_report(name)
         assert sum("Compiling entry function" in line for line in lines) == 1, lines
         assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
+
+
+# -- K11: the GN iteration's merge, solve, update and select ---------------------------
+
+STATE_FIELDS = ("rot", "trans", "best_res", "best_rot", "best_trans")
+
+
+def _clone(state):
+    return gn.GNState(*(getattr(state, f).clone() for f in STATE_FIELDS))
+
+
+def _pair(state, b, stop=None):
+    """Pairs b to ``stop`` (b alone by default) of a state, copied."""
+    return gn.GNState(*(getattr(state, f)[b:b + 1 if stop is None else stop].clone() for f in STATE_FIELDS))
+
+
+def _flat(images):
+    """(B, ...) flattened levels of batched range images (a leading axis of 1
+    added to a single one) for the prepacks."""
+    lead = images.points.shape[:-3]
+    b = lead[0] if lead else 1
+    h, w = images.height, images.width
+    return (images.points.reshape(b, h * w, 3), images.mask.reshape(b, h * w),
+            images.intensities.reshape(b, h * w), images.normals.reshape(b, h * w, 3),
+            images.intensity_map.reshape(b, h + 2, w + 2))
+
+
+def _gn_step(engine, tgt, src, params):
+    """``step(rot, trans)`` of the exact engine (K1) or ``pallas_v4`` (K10 +
+    K8) over B pairs: the two (B, 8, 8) block views the GN loop hands K11."""
+    sp_, sm, si, _, _ = _flat(src)
+    tp_, tm, _, tn, tmap = _flat(tgt)
+    if engine == "k1":
+        packed = image_icp.prepack_batched(sp_, sm, si, tp_, tm, tn, tmap)
+
+        def step(rot, trans):
+            aug = icp_fused.icp_step_fused(rot, trans, *packed, tgt.intrinsics, params)
+            return aug[:, 0], aug[:, 1]
+        return step
+    sp, tp, centroids, h, w = image_icp.prepack_v4_batched(sp_, sm, si, tp_, tm, tn, tmap, tgt.intrinsics)
+
+    def step(rot, trans):
+        bases = k3.predict_bases_centroid_batched(rot, trans, centroids, tgt.intrinsics, sp.shape[1] * k3.CHUNK)
+        return k4.icp_step_pallas_batched(rot, trans, *bases, sp, tp, tgt.intrinsics, h, w,
+                                          k3.params_to_tuple(params))[:2]
+    return step
+
+
+def _start(device, bsz):
+    pose = Transform.exp(torch.tensor([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], device=device))
+    return gn.GNState.start(pose.rotation.expand(bsz, 3, 3), pose.translation.expand(bsz, 3))
+
+
+def _weights(params):
+    return icp_fused._f32(params.weight), icp_fused._f32(params.color_weight)
+
+
+def _assert_close_to_twin(got, ref):
+    """NaN in the same places; equal residuals and select decisions; the
+    other pose entries within 2e-6 absolute (rotation) and 2e-6 of each
+    pair's largest translation entry."""
+    for f in STATE_FIELDS:
+        assert torch.equal(torch.isnan(getattr(got, f)), torch.isnan(getattr(ref, f))), f
+    assert torch.equal(got.best_res, ref.best_res)
+    for r in ("rot", "best_rot"):
+        assert float((getattr(got, r) - getattr(ref, r)).nan_to_num(0.0).abs().max()) <= 2e-6, r
+    for t in ("trans", "best_trans"):
+        gap = (getattr(got, t) - getattr(ref, t)).nan_to_num(0.0).abs().amax(-1)
+        assert bool((gap <= 2e-6 * getattr(ref, t).nan_to_num(0.0).abs().amax(-1)).all()), t
+
+
+@pytest.fixture(scope="module")
+def real64(cuda_device):
+    from align3d_torch.tools.series import real_pairs
+
+    return real_pairs(64, cuda_device)
+
+
+@pytest.mark.parametrize("huber", [None, 0.004])
+@pytest.mark.parametrize("shape", ["b1_level0", "b1_level1", "b1_level2", "b64_level0"])
+@pytest.mark.parametrize("engine", ["k1", "k8"])
+def test_gn_update_kernel_matches_plain(pyramids, real64, cuda_device, engine, shape, huber):
+    """K11 against its twin on the card on the blocks of real K1 and K8
+    steps, four GN iterations from the same state each: the residuals and the
+    decisions equal, the poses within 2e-6. One launch an update."""
+    bsz, level = (64, 0) if shape.startswith("b64") else (1, int(shape[-1]))
+    tgt, src = (real64[1], real64[0]) if bsz == 64 else (pyramids[0][level], pyramids[1][level])
+    ms = MsIcpParams.default() if engine == "k1" else MsIcpParams.default_tpu("pallas_v4")
+    params = ms[level].replace(huber_delta=huber)
+    step, (w1, w2) = _gn_step(engine, tgt, src, params), _weights(params)
+    state = _start(cuda_device, bsz)
+    selected = 0
+    for _ in range(4):
+        blocks = step(state.rot, state.trans)
+        ref = _clone(state)
+        gn.gn_update_plain(*blocks, w1, w2, ref)
+        before, best = gn.LAUNCHES, state.best_res.clone()
+        gn.gn_update(*blocks, w1, w2, state)
+        assert gn.LAUNCHES == before + 1
+        _assert_close_to_twin(state, ref)
+        selected += int((state.best_res != best).sum())
+    assert selected >= bsz  # the first iteration selects in every pair
+    if bsz == 1:
+        assert bool(torch.isfinite(state.rot).all() and torch.isfinite(state.trans).all())
+
+
+@pytest.mark.parametrize("engine", ["k1", "k8"])
+def test_gn_update_kernel_batch64_bitwise_against_single(real64, cuda_device, engine):
+    """Pair b of a B = 64 launch is bitwise the pair launched alone, over
+    three iterations."""
+    params = (MsIcpParams.default() if engine == "k1" else MsIcpParams.default_tpu("pallas_v4"))[0]
+    step, (w1, w2) = _gn_step(engine, real64[1], real64[0], params), _weights(params)
+    state = _start(cuda_device, 64)
+    for _ in range(3):
+        geom, color = step(state.rot, state.trans)
+        singles = [_pair(state, b) for b in range(64)]
+        gn.gn_update(geom, color, w1, w2, state)
+        for b, one in enumerate(singles):
+            gn.gn_update(geom[b:b + 1], color[b:b + 1], w1, w2, one)
+            assert all(torch.equal(getattr(one, f)[0], getattr(state, f)[b]) for f in STATE_FIELDS), b
+
+
+def _blocks(device, hessians, gradient=None, sq=None, count=None):
+    """(B, 8, 8) geometric blocks of the given (B, 6, 6) hessians, and zero
+    colour blocks. The default gradients are H x for x of ~0.01: updates of
+    the size the ICP loop takes."""
+    bsz = hessians.shape[0]
+    gen = torch.Generator().manual_seed(5)
+    geom = torch.zeros(bsz, 8, 8)
+    geom[:, :6, :6] = hessians
+    if gradient is None:
+        gradient = (hessians @ (0.01 * torch.randn(bsz, 6, 1, generator=gen)))[..., 0]
+    geom[:, :6, 6], geom[:, 6, :6] = gradient, gradient
+    geom[:, 6, 6] = torch.rand(bsz, generator=gen) + 0.5 if sq is None else sq
+    geom[:, 7, 7] = 100.0 if count is None else count
+    return geom.to(device), torch.zeros_like(geom).to(device)
+
+
+def _pd(n, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    jac = torch.randn(n, 12, 6, generator=gen) * 0.1
+    return jac.transpose(1, 2) @ jac + 0.01 * torch.eye(6)
+
+
+def _run_both(blocks, state, w1=1.0, w2=0.5):
+    ref = _clone(state)
+    gn.gn_update_plain(*blocks, w1, w2, ref)
+    gn.gn_update(*blocks, w1, w2, state)
+    return ref
+
+
+def test_gn_update_kernel_empty_tie_and_nan(cuda_device):
+    """Pair 0: count 0, so a zero update leaves the pose bitwise unchanged and
+    the residual (0 / 0) is not selected. Pair 1: its residual equals the
+    best so far, so the earlier best pose stays (strict <). Pair 2: a NaN
+    residual, never selected, while the pose still moves. Pair 3: selected."""
+    hessians = _pd(4)
+    sq = torch.tensor([0.0, 2.0, float("nan"), 1.0])
+    blocks = _blocks(cuda_device, hessians, sq=sq, count=torch.tensor([0.0, 10.0, 10.0, 10.0]))
+    state = _start(cuda_device, 4)
+    state.best_res.copy_(torch.tensor([1.0, 0.2, 5.0, 5.0]))  # pair 1: 2.0 / 10 == f32(0.2)
+    state.best_rot.copy_(Transform.identity((4,), device=cuda_device).rotation)
+    before = _clone(state)
+    ref = _run_both(blocks, state)
+    _assert_close_to_twin(state, ref)
+    assert torch.equal(state.rot[0], before.rot[0]) and torch.equal(state.trans[0], before.trans[0])
+    assert torch.equal(state.best_res[:3], before.best_res[:3])
+    assert float(state.best_res[3]) == float(torch.tensor(0.1))
+    assert torch.equal(state.best_rot[:3], before.best_rot[:3]) and torch.equal(state.best_trans[:3],
+                                                                                 before.best_trans[:3])
+    assert not torch.equal(state.rot[1:], before.rot[1:]) and torch.equal(state.best_rot[3], state.rot[3])
+
+
+def _rank_cases():
+    """Hessians whose Cholesky fails: rank 1 and 5 (J^T J), zero, a zero pivot
+    in the middle and last, a negative pivot, an indefinite matrix, a NaN."""
+    gen = torch.Generator().manual_seed(1)
+    cases = {}
+    for rank in (1, 5):
+        jac = torch.randn(rank, 6, generator=gen)
+        cases[f"rank{rank}"] = jac.T @ jac
+    cases["zero"] = torch.zeros(6, 6)
+    for name, diag in (("zero_mid", [1, 1, 1, 0, 1, 1]), ("zero_last", [1, 1, 1, 1, 1, 0]),
+                       ("negative_mid", [1, 1, -1, 1, 1, 1])):
+        cases[name] = torch.diag(torch.tensor(diag, dtype=torch.float32))
+    sym = torch.randn(6, 6, generator=gen)
+    cases["indefinite"] = sym + sym.T
+    nan = _pd(1, 7)[0]
+    nan[2, 1] = nan[1, 2] = float("nan")
+    cases["nan"] = nan
+    return cases
+
+
+@pytest.mark.parametrize("bsz", [1, 64])
+@pytest.mark.parametrize("case", sorted(_rank_cases()))
+def test_gn_update_kernel_failed_cholesky_pattern(cuda_device, case, bsz):
+    """A Hessian whose factorization fails gives the twin's NaN / finite
+    pattern on the card (cuSOLVER: NaN where a pivot is not positive), at B = 1
+    and in pair 0 of B = 64 beside positive-definite pairs, which stay close
+    to the twin."""
+    hessians = torch.cat([_rank_cases()[case][None], _pd(bsz - 1, 3)]) if bsz > 1 else _rank_cases()[case][None]
+    gradient = (hessians @ (0.01 * torch.randn(bsz, 6, 1, generator=torch.Generator().manual_seed(2))))[..., 0]
+    gradient[0] = torch.randn(6, generator=torch.Generator().manual_seed(4))  # not in the range of H
+    blocks = _blocks(cuda_device, hessians, gradient)
+    state = _start(cuda_device, bsz)
+    ref = _run_both(blocks, state)
+    for f in STATE_FIELDS:
+        assert torch.equal(torch.isfinite(getattr(state, f)), torch.isfinite(getattr(ref, f))), f
+        assert torch.equal(torch.isnan(getattr(state, f)), torch.isnan(getattr(ref, f))), f
+    if case not in ("rank1", "rank5", "indefinite"):  # the sign of their failing pivot is the data's
+        assert not bool(torch.isfinite(state.rot[0]).all())
+    if bsz > 1:
+        _assert_close_to_twin(_pair(state, 1, bsz), _pair(ref, 1, bsz))
+
+
+def test_gn_update_launches_once_a_gn_iteration(pyramids, cuda_device):
+    """An align on the card launches K11 once a ``gn.iter`` span: beside K1
+    in the exact engine, beside K8 in ``pallas_v4``."""
+    from align3d_torch.utils import profiling
+
+    tgt, src = pyramids[0][2], pyramids[1][2]
+    for engine, mod in (("xla", icp_fused), ("pallas_v4", k4)):
+        params = (MsIcpParams.default() if engine == "xla" else MsIcpParams.default_tpu("pallas_v4"))[2]
+        icp = image_icp.ImageIcp(params, tgt)
+        before, step_before = gn.LAUNCHES, mod.LAUNCHES
+        profiling.clear()
+        with profiling.recording():
+            icp.align(src)
+        iters = sum(s.name == "gn.iter" for s in profiling.spans())
+        profiling.clear()
+        assert iters == params.max_iterations
+        assert gn.LAUNCHES - before == mod.LAUNCHES - step_before == iters, engine
+
+
+def test_gn_update_rejects_bad_inputs(cuda_device):
+    blocks = _blocks(cuda_device, _pd(2))
+    state = _start(cuda_device, 2)
+    bad_blocks = [
+        (blocks[0][:1], blocks[1][:1]),  # one pair for two
+        (blocks[0].double(), blocks[1].double()),
+        (blocks[0].cpu(), blocks[1]),
+        (blocks[0].transpose(1, 2), blocks[1].transpose(1, 2)),  # rows not contiguous
+        (torch.zeros(2, 2, 8, 8, device=cuda_device)[:, 0], blocks[1]),  # pair strides 128 and 64
+    ]
+    for geom, color in bad_blocks:
+        with pytest.raises(ValueError):
+            gn.gn_update(geom, color, 1.0, 0.5, state)
+    # The state is checked once, when it is made, not at every update.
+    for f, bad in (("rot", state.rot.double()), ("trans", state.trans[:1]), ("best_res", state.best_res.cpu()),
+                   ("best_rot", state.best_rot.transpose(1, 2))):
+        fields = {g: getattr(state, g).clone() for g in STATE_FIELDS}
+        fields[f] = bad
+        with pytest.raises(ValueError):
+            gn.GNState(**fields)
+
+
+def test_gn_update_ptxas_report(cuda_device):
+    """K11 built (-fmad=false among its flags) with no spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    lines = _kernels.ptxas_report("gn_update_kernel")
+    assert sum("Compiling entry function" in line for line in lines) == 1, lines
+    assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
 
 
 # -- P1, P2: the roofline probes ------------------------------------------------------
