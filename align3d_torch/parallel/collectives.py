@@ -18,7 +18,9 @@ one, as :func:`align3d_torch.parallel.batch.make_mesh` and
 :func:`align3d_torch.parallel.multihost.initialize` set it up. Nothing here
 falls back to another backend or device: a tensor on another device type
 than the mesh's is refused (:func:`check_device`), and a failed collective
-raises. ``COLLECTIVES`` counts the collectives issued.
+raises. ``COLLECTIVES`` counts the collectives issued and ``BYTES`` the
+bytes this rank has put through them (an all-reduce's buffer; a gather's W
+broadcasts of a block each); both are read, never reset.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.distributed as dist
 from align3d_torch.se3 import Transform
 
 COLLECTIVES = 0
+BYTES = 0
 
 
 def one_dim_mesh(devices, axis_name: str):
@@ -117,10 +120,11 @@ def pad_rows(x: torch.Tensor, count: int, fill: torch.Tensor | None = None) -> t
 def all_reduce(mesh, *tensors: torch.Tensor):
     """``psum``: the sum over the mesh's ranks of each tensor (float32), by
     one all-reduce of a packed buffer. Returns one tensor or a tuple."""
-    global COLLECTIVES
+    global COLLECTIVES, BYTES
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group())
     COLLECTIVES += 1
+    BYTES += flat.numel() * flat.element_size()
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))
@@ -132,7 +136,7 @@ def all_gather(mesh, *tensors: torch.Tensor):
     """``all_gather`` along a new leading axis: each tensor, the same shape
     and dtype on every rank, comes back as (W, *shape), rank r's at [r],
     bitwise. The tensors travel packed as bytes, one broadcast per rank."""
-    global COLLECTIVES
+    global COLLECTIVES, BYTES
     blob = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
     w, me = world(mesh), rank(mesh)
     group = mesh.get_group()
@@ -141,6 +145,7 @@ def all_gather(mesh, *tensors: torch.Tensor):
     for r in range(w):
         dist.broadcast(out[r], src=dist.get_global_rank(group, r), group=group)
         COLLECTIVES += 1
+        BYTES += blob.numel()
     gathered, at = [], 0
     for t in tensors:
         size = t.numel() * t.element_size()

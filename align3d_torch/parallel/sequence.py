@@ -36,6 +36,7 @@ from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.parallel import collectives as col
 from align3d_torch.parallel.batch import align_frames, frame_inputs, frame_scales, stage
 from align3d_torch.trajectory import Trajectory, accumulate_scan
+from align3d_torch.utils import profiling
 
 
 def odometry_sequence_parallel(
@@ -57,7 +58,9 @@ def odometry_sequence_parallel(
     frame of the whole sequence. Returns the whole trajectory (N poses,
     frame 0 at the origin) on every rank. ``bilateral_filter`` filters
     each rank's frames first, as in ``odometry_step``; ``timer`` (a
-    StageTimer) times the stages.
+    StageTimer) times the stages. Records the spans ``odometry_step``
+    records (``batch.step`` with this rank's pairs, ``batch.upload``), and
+    ``dist.halo`` and ``dist.gather`` around the two all-gathers.
     """
     params = params or MsIcpParams.default()
     device = col.device(mesh)
@@ -70,18 +73,23 @@ def odometry_sequence_parallel(
         f = -(-n // w)
         # JAX's padding repeats the last frame; each rank reads its block only.
         block = np.minimum(np.arange(r * f, (r + 1) * f), n - 1)
-    colors_b, depths_b = frame_inputs(colors, depths, block, device)
-    # The global frames this rank aligns: the halo (r > 0), then its block.
-    scales = frame_scales(depth_scale, np.minimum(np.arange(max(r * f - 1, 0), (r + 1) * f), n - 1), device)
-
-    with stage(timer, "halo", depths_b):
-        last_c, last_d = col.all_gather(mesh, colors_b[-1], depths_b[-1])
-        if r > 0:
-            colors_b = torch.cat([last_c[r - 1 : r], colors_b])
-            depths_b = torch.cat([last_d[r - 1 : r], depths_b])
-    relative = align_frames(intrinsics, scales, colors_b, depths_b, params, pyramid_levels, bilateral_filter, timer)
-    with stage(timer, "gather", relative.rotation):
-        # Slot 0 is rank 0's dummy pair (source frame 0); slots past n - 1 are padding.
-        relative = col.gather_poses(mesh, relative, f, front=1 if r == 0 else 0)[1:n]
-    with stage(timer, "scan", relative.rotation):
-        return accumulate_scan(relative)
+    pairs = f - 1 if r == 0 else f
+    with profiling.span("batch.step", pairs=pairs):
+        with profiling.span("batch.upload"):
+            colors_b, depths_b = frame_inputs(colors, depths, block, device)
+            # The global frames this rank aligns: the halo (r > 0), then its block.
+            scales = frame_scales(depth_scale, np.minimum(np.arange(max(r * f - 1, 0), (r + 1) * f), n - 1), device)
+        with stage(timer, "halo", depths_b):
+            with profiling.span("dist.halo"):
+                last_c, last_d = col.all_gather(mesh, colors_b[-1], depths_b[-1])
+            if r > 0:
+                colors_b = torch.cat([last_c[r - 1 : r], colors_b])
+                depths_b = torch.cat([last_d[r - 1 : r], depths_b])
+        relative = align_frames(intrinsics, scales, colors_b, depths_b, params, pyramid_levels, bilateral_filter,
+                                timer)
+        with stage(timer, "gather", relative.rotation):
+            with profiling.span("dist.gather"):
+                # Slot 0 is rank 0's dummy pair (source frame 0); slots past n - 1 are padding.
+                relative = col.gather_poses(mesh, relative, f, front=1 if r == 0 else 0)[1:n]
+        with stage(timer, "scan", relative.rotation):
+            return accumulate_scan(relative)

@@ -27,6 +27,15 @@ lines:
   (``icp_banded_kernel``) launches, how many the runtime's launch call of
   lies inside a ``gn.step`` span, against the ``gn.step`` spans and the
   port's launch counters (K1's, K8's and K11's, one a ``gn.iter``).
+
+``--ranks N`` (N cards) runs instead the frame-sharded step on N processes,
+one a card, as a multi-card deployment does: each hands its own 64-frame
+block of a walk over sample1 (u8 colour, u16 depth host arrays) to
+``multihost.host_local_batch`` and calls ``odometry_step(mesh=)``. It prints
+one ``sharded`` line: rank 0's spans (``batch.step``, ``batch.upload``,
+``dist.halo``, ``dist.gather`` and those below) in ms a step, recorded, and
+the device's idle split by them over one step under a CUDA-only profile,
+with the collectives and bytes rank 0 put through (``collectives.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import datetime
 import json
 import os
 import statistics
@@ -42,6 +52,7 @@ import tempfile
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from align3d_torch import MultiscaleAlign, RangeImageBuilder
@@ -56,6 +67,10 @@ from align3d_torch.utils import profiling
 
 KERNELS = ("icp_step_kernel", "icp_banded_kernel")
 BLOCK, STEP_BLOCK, ROUNDS, PROFILED_FRAMES, PROFILED_STEPS = 5, 2, 8, 4, 2
+#: Frames a card holds in ``--ranks`` (64 pairs, the one-card step's).
+RANK_FRAMES = 64
+#: Seconds a collective, the group's start or the ranks' run may take in ``--ranks``.
+RANKS_TIMEOUT_S = 600
 DEVICE = "cuda"
 #: The benchmark's traced slice records CUDA activity only.
 SLICE_ACTIVITIES = [torch.profiler.ProfilerActivity.CUDA]
@@ -248,14 +263,106 @@ def launches_in_steps(events: list, base: int, kernels: dict, spans: list) -> di
     return found
 
 
+def sharded_rank(rank: int, ranks: int, address: str, out: str) -> None:
+    """One rank of ``--ranks``: warm up, ROUNDS steps recording spans, one
+    step under a CUDA-only profiler; rank 0 writes what it saw to ``out``."""
+    import torch.distributed as dist
+
+    from align3d_torch.parallel import collectives as col
+    from align3d_torch.parallel import multihost
+
+    device = torch.device(DEVICE, rank)
+    torch.cuda.set_device(device)
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    multihost.initialize(address, ranks, rank, local_device_ids=[rank],
+                         timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        mesh = multihost.global_mesh()
+        s = series.real_frames(61)  # sample1 forward and back: a walk of period 60, every pair adjacent
+        walk = np.arange(RANK_FRAMES * ranks) % 60
+        mine = walk[rank * RANK_FRAMES:(rank + 1) * RANK_FRAMES]
+        params, filt = MsIcpParams.default_tpu("pallas_v4"), BilateralFilter()
+
+        def step() -> None:
+            colors = multihost.host_local_batch(mesh, s.colors[mine])
+            depths = multihost.host_local_batch(mesh, s.depths[mine])
+            traj = odometry_step(s.camera, s.depth_scales[walk], colors, depths, params, 3, filt, mesh=mesh)
+            traj.camera_to_world.rotation.cpu()
+
+        for _ in range(2):
+            step()
+        profiling.clear()
+        with profiling.recording():
+            for _ in range(ROUNDS):
+                step()
+        means = span_means(profiling.spans(), ROUNDS)
+        profiling.clear()
+        counts0 = (col.COLLECTIVES, col.BYTES)
+        with torch.profiler.profile(activities=SLICE_ACTIVITIES) as prof:
+            step()
+            torch.cuda.synchronize()
+        spans = list(profiling.spans())
+        start_ns = prof.profiler.kineto_results.trace_start_ns()
+        intervals = [(start_ns + e.time_range.start * 1e3, start_ns + e.time_range.end * 1e3)
+                     for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rank == 0:
+            line = {"sharded": {"ranks": ranks, "frames_per_rank": RANK_FRAMES, "span_ms_per_step": means,
+                                "idle": idle_by_span(intervals, spans, ("batch.step",)),
+                                "collectives_per_step": col.COLLECTIVES - counts0[0],
+                                "bytes_per_step": col.BYTES - counts0[1]}}
+            with open(out, "w") as f:
+                json.dump(line, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded(ranks: int) -> dict:
+    """``--ranks``: the ranks in new processes, one card each; rank 0's line."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    with tempfile.TemporaryDirectory(prefix="spans_ranks_") as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        ctx = mp.start_processes(sharded_rank, args=(ranks, address, out), nprocs=ranks, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{ranks} ranks still running after {RANKS_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        with open(out) as f:
+            return json.load(f)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--control", action="store_true",
                         help="run the profiled units with no profiler (is a later phase slower without one?)")
+    parser.add_argument("--ranks", type=int, default=1,
+                        help="the frame-sharded step on this many cards, one process each, instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("the spans tool needs a CUDA device", file=sys.stderr)
         return 2
+    if args.ranks > 1:
+        if torch.cuda.device_count() < args.ranks:
+            print(f"--ranks {args.ranks} needs as many CUDA devices; there are {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "torch": torch.__version__}), flush=True)
+        print(json.dumps(sharded(args.ranks)), flush=True)
+        return 0
     device = torch.device(DEVICE)
     from align3d_torch import _kernels
 

@@ -27,8 +27,13 @@ there):
   residual, the float64 solve and the SE(3) update);
 * ``icp.level_wait``, under ``icp.level``: ``ImageIcp.align``'s read of
   the residual, the tracker's one wait for the device a level;
-* ``batch.step`` (``pairs``), root: ``parallel/batch.py::odometry_step``;
-  under it ``batch.upload`` (``frame_inputs`` and ``frame_scales``);
+* ``batch.step`` (``pairs``), root: ``parallel/batch.py::odometry_step``
+  and ``parallel/sequence.py::odometry_sequence_parallel`` (this rank's
+  pairs); under it ``batch.upload`` (``frame_inputs`` and ``frame_scales``);
+* ``dist.halo`` and ``dist.gather``, under the stages ``halo`` and
+  ``gather`` (or ``batch.step``): the sequence path's halo all-gather and
+  pose gather (``parallel/collectives.py``, whose ``COLLECTIVES`` and
+  ``BYTES`` count them);
 * ``batch.plan_wait``: ``filter_buckets``' read of the bucket plan, under
   the stage ``filter`` (or ``batch.step``);
 

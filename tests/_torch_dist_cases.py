@@ -86,6 +86,18 @@ def small_params():
     return MsIcpParams.repeat(2, IcpParams(max_iterations=3))
 
 
+#: The benchmark's batch configurations' bilateral filter (sigma space, sigma colour, depth padding).
+FILTER = (4.50000000225, 29.9999880000072, 16)
+#: What the sequence path records a step on every rank.
+SEQUENCE_SPANS = ("batch.step", "batch.upload", "dist.halo", "dist.gather")
+
+
+def bilateral():
+    from align3d_torch.ops.bilateral import BilateralFilter
+
+    return BilateralFilter(*FILTER)
+
+
 def graph(npz, prefix: str):
     from align3d_torch.convert import pose_graph_from_numpy
 
@@ -137,7 +149,37 @@ def sharded_paths(rank: int, world: int, inputs: str, out_dir: str) -> None:
     out["ba_dense_poses"], out["ba_dense_landmarks"] = poses(p), lm.numpy()
     p, lm = ba.optimize(problem(npz, "ba_coo"), iterations=3, solver="coo", mesh=mesh)
     out["ba_coo_poses"], out["ba_coo_landmarks"] = poses(p), lm.numpy()
+    out.update(u16_blocks(rank, world, mesh, intr, colors, depths))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def u16_blocks(rank: int, world: int, mesh, intr, colors, depths) -> dict:
+    """The deployment's form of the frame-sharded step: each rank hands its
+    own block of u8 colour and u16 depth host arrays to ``host_local_batch``
+    and calls ``odometry_step(mesh=)`` with the filter on, recording spans;
+    what every rank reports alike: the trajectory, the spans recorded, the
+    collectives and bytes the step put through, and whether its
+    ``batch.step`` span counts this rank's pairs."""
+    from align3d_torch.parallel import collectives as col
+    from align3d_torch.parallel import multihost
+    from align3d_torch.parallel.batch import odometry_step
+    from align3d_torch.utils import profiling
+
+    f = colors.shape[0] // world
+    block = slice(rank * f, (rank + 1) * f)
+    c = multihost.host_local_batch(mesh, colors[block])
+    d = multihost.host_local_batch(mesh, depths[block])
+    profiling.clear()
+    c0, b0 = col.COLLECTIVES, col.BYTES
+    with profiling.recording():
+        traj = odometry_step(intr, 0.001, c, d, small_params(), 2, bilateral_filter=bilateral(), mesh=mesh)
+    steps = [s for s in profiling.spans() if s.name == "batch.step"]
+    pairs_ok = len(steps) == 1 and steps[0].parent < 0 and steps[0].pairs == (f - 1 if rank == 0 else f)
+    out = {"u16_step": poses(traj.camera_to_world), "u16_dtype": str(d.to_local().dtype),
+           "seq_spans": np.asarray(sorted({s.name for s in profiling.spans()})),
+           "seq_collectives": col.COLLECTIVES - c0, "seq_bytes": col.BYTES - b0, "seq_step_pairs_ok": pairs_ok}
+    profiling.clear()
+    return out
 
 
 def host_local_paths(rank: int, world: int, inputs: str, out_dir: str) -> None:

@@ -21,14 +21,27 @@ Tolerances:
 """
 
 import dataclasses
+import json
+import types
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_dist_cases import camera, poses, sharded_paths, small_params, spawn, synthetic_sequence
+from _torch_dist_cases import (
+    FILTER,
+    SEQUENCE_SPANS,
+    bilateral,
+    camera,
+    poses,
+    sharded_paths,
+    small_params,
+    spawn,
+    synthetic_sequence,
+)
 from jax.sharding import Mesh
 from test_bundle_adjustment import _synthetic_problem
 from test_parallel import _synthetic_sequence
@@ -41,6 +54,9 @@ from align3d_tpu.parallel import bundle_adjustment as jba
 from align3d_tpu.parallel import pose_graph as jpg
 from align3d_tpu.parallel.sequence import odometry_sequence_parallel as jax_sequence_parallel
 
+from benchmark import check
+from benchmark.reference import FULL, pipeline
+
 from align3d_torch.parallel import batch as tbatch
 from align3d_torch.parallel import bundle_adjustment as ba
 from align3d_torch.parallel import pose_graph as pg
@@ -50,6 +66,7 @@ from align3d_torch.se3 import Transform
 import _torch_dist_cases as cases
 
 WORLDS = [2, 4]
+ROOT = Path(__file__).resolve().parent.parent
 ODOMETRY_ANGLE, ODOMETRY_TRANS = 0.01, 0.02  # rad, m: the port against JAX's jitted odometry_step
 SOLVE_ATOL = 1e-4  # the JAX tests' sharded-vs-single gate
 
@@ -123,6 +140,8 @@ def _unsharded(case):
     intr, colors, depths = camera(npz["camera"]), npz["colors"], npz["depths"]
     out = {f"step{n}": poses(tbatch.odometry_step(intr, 0.001, colors[:n], depths[:n], small_params(), 2,
                                                   device="cpu").camera_to_world) for n in (8, 6)}
+    out["u16_step"] = poses(tbatch.odometry_step(intr, 0.001, colors, depths, small_params(), 2, bilateral(),
+                                                 device="cpu").camera_to_world)
     ring = cases.graph(npz, "ring")
     z = Transform(torch.from_numpy(npz["ring_z"][:, :3]), torch.from_numpy(npz["ring_z"][:, 3]))
     from align3d_torch.trajectory import Trajectory
@@ -238,3 +257,55 @@ def test_one_rank_mesh_in_process(case, unsharded, one_rank_group):
     np.testing.assert_allclose(lm.numpy(), unsharded["ba_coo_landmarks"], atol=SOLVE_ATOL, rtol=0)
     with pytest.raises(ValueError):  # a CPU mesh runs on the CPU: no silent move to the card
         tbatch.odometry_step(intr, 0.001, colors, depths, small_params(), 2, mesh=mesh, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def reference_rel(case):
+    """The benchmark's plain reference (``benchmark/reference/``) of the 8
+    frames' pairs, from the raw frames, at the ranks' parameters and the
+    batch configurations' filter."""
+    npz = np.load(case["path"])
+    fixture = types.SimpleNamespace(colors=npz["colors"], depths=npz["depths"], depth_scale=0.001,
+                                    camera=tuple(npz["camera"]))
+    levels = [{"level": i, "engine": p.engine, "iterations": p.max_iterations, "weight": p.weight,
+               "color_weight": p.color_weight, "max_distance": p.max_distance, "max_normal_angle": p.max_normal_angle,
+               "max_color_distance": p.max_color_distance, "band_radius": p.band_radius}
+              for i, p in enumerate(small_params())]
+    config = {"bilateral_filter": dict(zip(("sigma_space", "sigma_color", "pad_depth_to"), FILTER)),
+              "filter_span": "nonzero", "pyramid_levels": 2, "blur_sigma": 1.0, "levels": levels}
+    return pipeline.outputs(config, {"synthetic": fixture}, [("synthetic", i) for i in range(8)], FULL, "cpu")["rel"]
+
+
+def test_sequence_spans_and_collective_bytes(world):
+    """The frame-sharded step records ``batch.step`` (a root, this rank's
+    pairs), ``batch.upload``, ``dist.halo`` and ``dist.gather`` on every
+    rank, and ``collectives.BYTES`` rises by what the halo and the pose
+    gather move: W broadcasts of one frame (u8 colour and int32 depth) and
+    W of a rank's F pose slots (3x3 + 3 float32, 48 B)."""
+    w, ranks, _ = world
+    f, (h, wd) = 8 // w, (48, 64)
+    for rank in ranks:
+        assert set(SEQUENCE_SPANS) <= set(rank["seq_spans"].tolist())
+        assert bool(rank["seq_step_pairs_ok"])
+        assert int(rank["seq_collectives"]) == 2 * w
+        assert int(rank["seq_bytes"]) == w * h * wd * (3 + 4) + w * f * 48
+
+
+def test_u16_host_local_step(world, unsharded, reference_rel):
+    """Each rank's own block of u16 depth host arrays through
+    ``host_local_batch`` and ``odometry_step(mesh=)``, filter on: bitwise
+    the port unsharded, and each pair within the batch cells' pose limits
+    (``benchmark/cells/``) of the benchmark's plain reference."""
+    _, ranks, _ = world
+    got = ranks[0]["u16_step"]
+    assert str(ranks[0]["u16_dtype"]) == "torch.uint16"
+    np.testing.assert_array_equal(got, unsharded["u16_step"])
+    # rel_i = P_i P_(i-1)^-1, in float64.
+    rot, trans = got[..., :3].astype(np.float64), got[..., 3].astype(np.float64)
+    rel_rot = rot[1:] @ np.swapaxes(rot[:-1], -1, -2)
+    rel_trans = trans[1:] - np.einsum("nij,nj->ni", rel_rot, trans[:-1])
+    numbers = check.Numbers()
+    numbers.pose((torch.from_numpy(rel_rot), torch.from_numpy(rel_trans)), reference_rel)
+    limits = json.loads((ROOT / "benchmark" / "cells" / "batch64-v4-640x480.sample1-walk.json").read_text())["limits"]
+    for name in ("pose_rot_rad", "pose_trans_m"):
+        assert numbers.values[name] <= limits[name], (name, numbers.values[name])
