@@ -30,12 +30,12 @@ PTXAS_LOG = "ptxas.log"  # the compiler's -Xptxas -v report of the library's bui
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # Flags of one source only. The exact and the banded ICP steps, the band
-# prediction and the GN update round every product and sum on their own, as
-# their plain twins do, so that the association and the gates decide as the
-# twin's do, the bases are the twin's bits and the merged systems and
-# residuals too.
+# prediction, the GN update and the pyramid round every product and sum on
+# their own, as their plain twins do, so that the association and the gates
+# decide as the twin's do, the bases are the twin's bits, the merged systems
+# and residuals too, and the pyramid is bitwise the twin's.
 FILE_FLAGS = {"icp_step.cu": ["-fmad=false"], "icp_banded.cu": ["-fmad=false"], "band_predict.cu": ["-fmad=false"],
-              "gn_update.cu": ["-fmad=false"]}
+              "gn_update.cu": ["-fmad=false"], "pyramid.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +87,16 @@ _SIGNATURES = {
         _P, _P, ctypes.c_longlong, _I,  # geometric and colour 8x8 blocks, pair stride (floats), batch
         _F, _F, _F, _F,  # f32(w1 * w1), f32(w2 * w2), w1, w2
         _P, _P, _P, _P, _P, _P,  # rot, trans, best_res, best_rot, best_trans (in place), stream
+    ],
+    "a3d_pyramid_base": [
+        _P, _P, _P, _F, _I, _I, _I,  # depth, colour, scales (or null), scale, batch, h, w
+        _F, _F, _F, _F,  # fx, fy, cx, cy
+        _P, _P, _P, _P, _P, _P,  # points, mask, normals, luma, intensity map (the last three may be null), stream
+    ],
+    "a3d_pyramid_down": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I,  # points, normals (or null), mask, colours, batch, h, w, dh, dw
+        _F, _F, _I, _I, ctypes.POINTER(_F),  # f32(h / dh), f32(w / dw), first tap offset, taps, weights
+        _P, _P, _P, _P, _P, _P, _P,  # points, normals, mask, colours, luma, intensity map, stream
     ],
     "a3d_predict_bases": [
         _P, _P, _P, _P, _P, _P,  # rot, trans, pbar, rowbar, colbar, cnt

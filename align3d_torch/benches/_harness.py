@@ -40,7 +40,7 @@ import time
 
 import torch
 
-from align3d_torch.ops import bilateral, icp_fused, icp_pallas_v3, icp_pallas_v4, mesh, nn_banded
+from align3d_torch.ops import bilateral, icp_fused, icp_pallas_v3, icp_pallas_v4, mesh, nn_banded, pyramid
 from align3d_torch.viz import sphere
 
 #: The port's kernels on the benches' paths: the symbol the profiler shows
@@ -56,6 +56,8 @@ KERNELS = {
     "K8": ("icp_banded_kernel<true>", [(icp_pallas_v4, "LAUNCHES")]),
     "K9": ("source_centroids_kernel", [(icp_pallas_v3, "CENTROIDS_LAUNCHES")]),
     "K10": ("predict_bases_kernel", [(icp_pallas_v3, "PREDICT_LAUNCHES")]),
+    "K12": ("pyramid_base_kernel", [(pyramid, "BASE_LAUNCHES")]),
+    "K13": ("pyramid_down_kernel", [(pyramid, "DOWN_LAUNCHES")]),
 }
 RUNS, WARMUP = 5, 2
 TO_UNIT = {"ms": 1.0, "us": 1e3, "s": 1e-3}  # from ms

@@ -15,9 +15,9 @@ from typing import Any, Optional
 import torch
 
 from align3d_torch.camera import CameraIntrinsics
-from align3d_torch.image import RgbdFrame, py_scale_down, rgb_to_luma_u8
+from align3d_torch.image import RgbdFrame, rgb_to_luma_u8
 from align3d_torch.ops import normals as normals_ops
-from align3d_torch.ops import resize as resize_ops
+from align3d_torch.ops import pyramid as pyramid_ops
 from align3d_torch.ops.intensity import build_intensity_map
 from align3d_torch.utils import profiling
 
@@ -61,12 +61,7 @@ class RangeImage:
         """Backproject int depth images; zero depth marks invalid pixels,
         whose points stay (0, 0, 0). ``depth_scale`` is a float or a tensor
         of the images' leading shape (one scale per frame)."""
-        mask = depth > 0
-        if isinstance(depth_scale, torch.Tensor):
-            depth_scale = depth_scale.to(device=depth.device, dtype=torch.float32)[..., None, None]
-        z = depth.to(torch.float32) * depth_scale
-        points = intrinsics.backproject_grid(z)
-        points = torch.where(mask[..., None], points, 0.0)
+        points, mask = pyramid_ops.backproject(intrinsics, depth, depth_scale)
         return cls(points=points, mask=mask, intrinsics=intrinsics, colors=color)
 
     @classmethod
@@ -92,12 +87,8 @@ class RangeImage:
     def scale_down(self, sigma: float) -> "RangeImage":
         """Half-resolution level: points/normals by masked nearest-to-mean,
         colours by blur + stride 2, intrinsics scaled by 0.5."""
-        dst_h, dst_w = self.height // 2, self.width // 2
-        points, mask = resize_ops.resize_nearest_to_mean(self.points, self.mask, dst_h, dst_w)
-        normals = None
-        if self.normals is not None:
-            normals, _ = resize_ops.resize_nearest_to_mean(self.normals, self.mask, dst_h, dst_w)
-        colors = py_scale_down(self.colors, sigma) if self.colors is not None else None
+        points, mask, normals, colors = pyramid_ops.scale_down(self.points, self.mask, self.normals, self.colors,
+                                                               sigma)
         return RangeImage(
             points=points,
             mask=mask,
@@ -163,14 +154,16 @@ def build_pyramid_impl(
 ) -> list[RangeImage]:
     """Pyramid construction in the order of ``builder.rs:74-91``. ``color``
     (..., H, W, 3) and ``depth`` (..., H, W) may carry leading frame axes;
-    every level then carries them too (the JAX package's ``vmap``)."""
-    first = RangeImage.from_rgbd(intrinsics, color, depth, depth_scale)
-    if with_normals:
-        first = first.with_normals()
-    levels = first.pyramid(pyramid_levels, blur_sigma)
-    if with_intensity:
-        levels = [ri.with_intensity().with_intensity_map() for ri in levels]
-    return levels
+    every level then carries them too (the JAX package's ``vmap``). On the
+    card one kernel launch a level (:func:`align3d_torch.ops.pyramid.build`:
+    K12, then K13 a coarser level; int32 depth and u8 colour, contiguous),
+    on the CPU the plain twin."""
+    out = []
+    for level in pyramid_ops.build(with_normals, with_intensity, pyramid_levels, blur_sigma, intrinsics,
+                                   depth_scale, color, depth):
+        intrinsics = intrinsics.scale(0.5) if out else intrinsics
+        out.append(RangeImage(intrinsics=intrinsics, **level._asdict()))
+    return out
 
 
 def range_image_to_pointcloud(ri: RangeImage) -> dict:

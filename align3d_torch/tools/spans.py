@@ -26,7 +26,8 @@ lines:
 * ``launches``: of the trace's K1 (``icp_step_kernel``) and K8
   (``icp_banded_kernel``) launches, how many the runtime's launch call of
   lies inside a ``gn.step`` span, against the ``gn.step`` spans and the
-  port's launch counters (K1's, K8's and K11's, one a ``gn.iter``).
+  port's launch counters (K1's, K8's and K11's, one a ``gn.iter``; K12's
+  and K13's, the pyramid's, one a level of each build).
 
 ``--ranks N`` (N cards) runs instead the frame-sharded step on N processes,
 one a card, as a multi-card deployment does: each hands its own 64-frame
@@ -59,6 +60,7 @@ from align3d_torch import MultiscaleAlign, RangeImageBuilder
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.image import RgbdFrame, RgbdImage
 from align3d_torch.ops import icp_fused, icp_pallas_v4
+from align3d_torch.ops import pyramid as pyramid_ops
 from align3d_torch.ops.bilateral import BilateralFilter
 from align3d_torch.optim import gauss_newton
 from align3d_torch.parallel.batch import odometry_step
@@ -393,14 +395,16 @@ def main(argv=None) -> int:
     print(json.dumps(phase("after a CUDA-only profile", tracker, s, device)), flush=True)
 
     if not args.control:
-        counts0 = (icp_fused.LAUNCHES, icp_pallas_v4.LAUNCHES, gauss_newton.LAUNCHES)
+        counts0 = (icp_fused.LAUNCHES, icp_pallas_v4.LAUNCHES, gauss_newton.LAUNCHES, pyramid_ops.BASE_LAUNCHES,
+                   pyramid_ops.DOWN_LAUNCHES)
         with tempfile.TemporaryDirectory(prefix="spans_trace_") as log_dir:
             with profiling.trace(log_dir):
                 spans = profiled_units(tracker, s, device)
             with open(os.path.join(log_dir, "trace.json")) as f:
                 data = json.load(f)
         counts = {"K1": icp_fused.LAUNCHES - counts0[0], "K8": icp_pallas_v4.LAUNCHES - counts0[1],
-                  "K11": gauss_newton.LAUNCHES - counts0[2]}
+                  "K11": gauss_newton.LAUNCHES - counts0[2], "K12": pyramid_ops.BASE_LAUNCHES - counts0[3],
+                  "K13": pyramid_ops.DOWN_LAUNCHES - counts0[4]}
         base, events = int(data.get("baseTimeNanoseconds", 0)), data["traceEvents"]
         intervals, kernels = chrome_device(events, base)
         for part, roots in PARTS.items():

@@ -8,7 +8,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
 1. CUDA present; print the device and ``nvidia-smi`` name / power limit.
 2. Build the CUDA kernels from ``align3d_torch/csrc`` (timed), and print
    the ``-Xptxas -v`` report (registers, shared memory, spills) of K1, K2,
-   K3 (its four instantiations), K4, K5, K6, K7/K8, K9, K10 and K11.
+   K3 (its four instantiations), K4, K5, K6, K7/K8, K9, K10, K11, K12 and
+   K13.
 3. Hold each kernel against its plain-PyTorch twin on the card at its
    paths' shapes, and time both: device time per call from
    ``torch.profiler`` (for K1-K3 and K5 checked to be one launch of the
@@ -36,7 +37,11 @@ Run from the root of a checkout. Phases, each of which fails the run:
    its plain twins. K11 on the blocks of real K1 and K8 steps, sample1
    frames 0 <- 1 (B = 1) and the 64 real pairs (B = 64), level 0, four GN
    iterations each: the best residuals and the select decisions equal the
-   twin's, the poses within GN_UPDATE_ATOL, one launch an update.
+   twin's, the poses within GN_UPDATE_ATOL, one launch an update. K12 and
+   K13, the pyramid, at sample1 frame 1 (B = 1) and the 65 frames of the
+   throughput series: every output of every level bitwise the plain twin,
+   one K12 and two K13 launches a 3-level build; each launch, the whole
+   build and the plain chain timed beside the byte bound.
 4. Drive each path with its kernels' launch counts reset just before and
    read just after; the filter paths (4a, 4d) must slice through K3's form
    (b) only, with no launch of form (a) and no ``_normalize`` pass:
@@ -299,7 +304,7 @@ KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "sli
                 "mesh": ("mesh_normals",), "sphere": ("column_mean",),
                 "banded": ("icp_banded_kernel<false>", "icp_banded_kernel<true>"),
                 "centroids": ("source_centroids_kernel",), "predict": ("predict_bases_kernel",),
-                "k11": ("gn_update_kernel",)}
+                "k11": ("gn_update_kernel",), "k12": ("pyramid_base_kernel",), "k13": ("pyramid_down_kernel",)}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
 PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
@@ -307,7 +312,7 @@ PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
                 "K3": ["align3d_tpu/ops/bilateral.py:598"],
                 "K4": ["align3d_tpu/ops/nn_banded.py:370", "align3d_tpu/ops/nn_banded.py:459"],
                 "K5": ["align3d_tpu/ops/mesh.py:356"], "P1": ["tools/roofline_v4.py:68"],
-                "P2": ["tools/roofline_v4.py:118"], "K11": []}
+                "P2": ["tools/roofline_v4.py:118"], "K11": [], "K12": [], "K13": []}
 PTXAS_NAMES = {**{key: names[0] for key, names in KERNEL_NAMES.items()}, "nn": "nn_banded",
                "banded": "icp_banded_kernel"}
 
@@ -647,6 +652,85 @@ def check_gn_update(torch, pyr0, pyr1) -> tuple:
     del sources, targets
     return (worst, *timing, {"library_ms": None, "library_reason":
                              "no PyTorch call does the merge, the solve, the SE(3) update and the select"}), rows
+
+
+def pyramid_bytes(b: int, h: int, w: int, level: int) -> int:
+    """Least bytes of one pyramid level of ``b`` frames of (h, w) (the level
+    itself for level 0, else the finer level's size): each input read once,
+    each output written once. Level 0 reads int32 depth and u8 colour and
+    writes points, normals, mask, luma and the (h+2, w+2) map; a coarser
+    level reads the finer points, normals, mask and colour and writes those
+    four, luma and the map at (h/2, w/2)."""
+    if level == 0:
+        return b * (h * w * (4 + 3 + 12 + 12 + 1 + 1) + (h + 2) * (w + 2) * 4)
+    dh, dw = h // 2, w // 2
+    return b * (h * w * (12 + 12 + 1 + 3) + dh * dw * (12 + 12 + 1 + 3 + 1) + (dh + 2) * (dw + 2) * 4)
+
+
+def check_pyramid(torch) -> dict:
+    """Phase 3: K12 and K13 against their twin (``ops/pyramid.py::
+    pyramid_plain``) on the card, sample1 frame 1 (B = 1) and the 65 frames
+    of ``series.real_frames`` (B = 65, per-frame scales) at 640x480, three
+    levels: every output of every level bitwise, one launch a level. Times
+    each launch (device ms from the profiler, checked to be the kernel
+    alone), the whole 3-launch build and the plain chain (device ms and
+    per-call ms of back-to-back calls) beside the byte bound."""
+    import numpy as np
+
+    from align3d_torch.io.datasets import SlamTbDataset
+    from align3d_torch.ops import pyramid as pyr
+    from align3d_torch.tools import series
+
+    frame = SlamTbDataset.load(str(SAMPLE1)).get(1)
+    s = series.real_frames()
+    shapes = {
+        "batch1": (frame.camera, float(frame.image.depth_scale), torch.from_numpy(frame.image.color).to(DEVICE),
+                   torch.from_numpy(frame.image.depth.astype(np.int32)).to(DEVICE)),
+        f"batch{len(s)}": (s.camera, torch.from_numpy(s.depth_scales).to(DEVICE),
+                           torch.from_numpy(s.colors).to(DEVICE),
+                           torch.from_numpy(s.depths.astype(np.int32)).to(DEVICE)),
+    }
+    rows = {}
+    for label, (camera, scale, color, depth) in shapes.items():
+        b = 1 if depth.ndim == 2 else depth.shape[0]
+        h, w = depth.shape[-2:]
+        args = (True, True, 3, 1.0, camera, scale, color, depth)
+        before = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+        got = pyr.build(*args)
+        torch.cuda.synchronize()
+        if (pyr.BASE_LAUNCHES - before[0], pyr.DOWN_LAUNCHES - before[1]) != (1, 2):
+            raise AssertionError(f"pyramid {label}: {pyr.BASE_LAUNCHES - before[0]} K12 and "
+                                 f"{pyr.DOWN_LAUNCHES - before[1]} K13 launches for a 3-level build")
+        ref = pyr.pyramid_plain(*args)
+        for k, (g, r) in enumerate(zip(got, ref)):
+            for field in pyr.Level._fields:
+                a, c = getattr(g, field), getattr(r, field)
+                same = a.dtype == c.dtype and a.shape == c.shape and torch.equal(
+                    a.view(torch.int32) if a.dtype == torch.float32 else a,
+                    c.view(torch.int32) if c.dtype == torch.float32 else c)
+                if not same:
+                    raise AssertionError(f"pyramid {label}: level {k} {field} differs from the twin's")
+        k12 = timings(torch, lambda: pyr.pyramid_base(depth, color, scale, camera, True, True),
+                      kernel=KERNEL_NAMES["k12"][0])
+        k13 = [timings(torch, lambda lv=lv: pyr.pyramid_down(lv, 1.0, True), kernel=KERNEL_NAMES["k13"][0])
+               for lv in got[:2]]
+        whole = timings(torch, lambda: pyr.build(*args))
+        plain = timings(torch, lambda: pyr.pyramid_plain(*args), n=10, profiled=3)
+        sizes = [(h >> k, w >> k) for k in range(3)]
+        nbytes = [pyramid_bytes(b, h, w, 0), pyramid_bytes(b, *sizes[0], 1), pyramid_bytes(b, *sizes[1], 2)]
+        row = {"frames": b, "bitwise": True,
+               "k12": {"ms": k12[0], "call_ms": k12[1], **bound(nbytes[0], 0)},
+               "k13_level1": {"ms": k13[0][0], "call_ms": k13[0][1], **bound(nbytes[1], 0)},
+               "k13_level2": {"ms": k13[1][0], "call_ms": k13[1][1], **bound(nbytes[2], 0)},
+               "build": {"ms": whole[0], "call_ms": whole[1], **bound(sum(nbytes), 0)},
+               "plain": {"ms": plain[0], "call_ms": plain[1]}}
+        rows[label] = row
+        print(f"pyramid K12/K13 {label}: bitwise the twin at every level, 1 K12 + 2 K13 a build; "
+              f"K12 {k12[0]} ms (bound {row['k12']['bound_ms']:.4f}), K13 {k13[0][0]} / {k13[1][0]} ms "
+              f"(bounds {row['k13_level1']['bound_ms']:.4f} / {row['k13_level2']['bound_ms']:.4f}); "
+              f"build {whole[0]} ms device, {whole[1]:.4f} ms a call; plain chain {plain[0]} ms device, "
+              f"{plain[1]:.4f} ms a call")
+    return rows
 
 
 def check_icp_blocks(torch, got, ref, mask, label: str) -> float:
@@ -2745,11 +2829,13 @@ def direct_results(torch, name: str, mod, line: dict):
 def bench_launch_failures(name: str, line: dict) -> list:
     """The launches a bench's line reports against what its path issues,
     and the profiler's count beside them (reported, not gated)."""
-    # K10 once a banded GN iteration; K9 once a banded align (3 an odometry step, one a level).
-    banded_step = {"K8": STEP_ITERATIONS, "K9": 3, "K10": STEP_ITERATIONS}
+    # K10 once a banded GN iteration; K9 once a banded align (3 an odometry step, one a level); K12
+    # once and K13 twice an odometry step (its 3-level pyramids).
+    pyramids = {"K12": 1, "K13": 2}
+    banded_step = {"K8": STEP_ITERATIONS, "K9": 3, "K10": STEP_ITERATIONS, **pyramids}
     want = {"bench_image_icp": {"K8": 10, "K10": 10}, "bench_icp_kernel": {"K7": 10}, "bench_pcl_icp": {"K4": 10},
             "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1}, "bench_bilateral": {"K2": 1, "K3": 1},
-            "bench_odometry": banded_step, "bench_scaling": {"K1": STEP_ITERATIONS}}.get(name, {})
+            "bench_odometry": banded_step, "bench_scaling": {"K1": STEP_ITERATIONS, **pyramids}}.get(name, {})
     checks = [("line", line, want)]
     if name == "bench_image_icp":
         checks.append(("xla", line["xla"], {"K1": 10}))
@@ -2758,7 +2844,7 @@ def bench_launch_failures(name: str, line: dict) -> list:
                    ("xla_full_align", line["xla_full_align"], {"K1": 10}),
                    ("xla_kernel_only", line["xla_kernel_only"], {"K1": 10})]
     if name == "bench_odometry":
-        checks.append(("xla", line["xla"], {"K1": STEP_ITERATIONS}))
+        checks.append(("xla", line["xla"], {"K1": STEP_ITERATIONS, **pyramids}))
         for key in ("real", "mixed", "synthetic"):
             on = line["series"][key]["on"]
             checks.append((f"{key} filter on", on, {**banded_step, "K2": on["buckets"], "K3": on["buckets"]}))
@@ -3227,6 +3313,7 @@ def main() -> int:
     from align3d_torch.odometry import run_odometry
     from align3d_torch.ops import bilateral as bil
     from align3d_torch.ops import icp_fused
+    from align3d_torch.ops import pyramid as pyramid_ops
     from align3d_torch.optim import gauss_newton
     from align3d_torch.range_image import RangeImageBuilder
     from align3d_torch.trajectory import Trajectory
@@ -3241,7 +3328,8 @@ def main() -> int:
     icp = check_icp(torch, pyr0, pyr1)
     gn_update, gn_update_rows = check_gn_update(torch, pyr0, pyr1)
     del pyr0, pyr1
-    done("phase 3, K1-K3, K11")
+    pyramid_rows = check_pyramid(torch)
+    done("phase 3, K1-K3, K11-K13")
 
     import numpy as np
 
@@ -3287,16 +3375,18 @@ def main() -> int:
     # -- 4. the main path ----------------------------------------------------
     subset = SubsetDataset(dataset, range(FRAMES))
     icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.NORMALIZE_SLICE_LAUNCHES = gauss_newton.LAUNCHES = 0
-    bil.SLICE_LAUNCHES = bil.NORMALIZE_PASSES = 0
+    bil.SLICE_LAUNCHES = bil.NORMALIZE_PASSES = pyramid_ops.BASE_LAUNCHES = pyramid_ops.DOWN_LAUNCHES = 0
     first = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
     launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.NORMALIZE_SLICE_LAUNCHES,
-                "k11": gauss_newton.LAUNCHES}
+                "k11": gauss_newton.LAUNCHES, "k12": pyramid_ops.BASE_LAUNCHES, "k13": pyramid_ops.DOWN_LAUNCHES}
     print(f"main-path launches: {launches}; K3 form (a) launches {bil.SLICE_LAUNCHES}, "
           f"_normalize passes {bil.NORMALIZE_PASSES}")
     if min(launches.values()) <= 0:
         return fail(f"a kernel of the main path never launched: {launches}")
     if launches["k11"] != launches["icp"]:
         return fail(f"K11 launched otherwise than once a GN iteration: {launches}")
+    if (launches["k12"], launches["k13"]) != (FRAMES, 2 * FRAMES):
+        return fail(f"the pyramid launched otherwise than K12 once and K13 twice a frame: {launches}")
     if bil.SLICE_LAUNCHES or bil.NORMALIZE_PASSES:
         return fail("the filter normalized a grid or sliced through K3's form (a)")
     second = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
@@ -3549,6 +3639,18 @@ def main() -> int:
               shapes=gn_update_rows),
         *(band_entry(key, banded_out, launches[key.lower()], paths(key.lower()),
                      ptxas["centroids" if key == "K9" else "predict"]) for key in ("K9", "K10")),
+        # K12 and K13 replace no TPU kernel: the JAX package's pyramid is plain
+        # jnp that XLA fuses; their twin is the plain chain of the port.
+        *({"name": f"{name} ({key.upper()})", "route": "cuda", "source": "align3d_torch/csrc/pyramid.cu",
+           "replaces": "align3d_tpu/range_image.py:189", "pallas_calls": PALLAS_CALLS[key.upper()],
+           "replaces_note": "the pyramid's plain jnp, fused by XLA into the jitted, vmapped build; no TPU kernel",
+           "launches": launches[key], "launches_by_path": {"odometry (4a)": launches[key]},
+           "max_abs_err": 0.0, "err": "bitwise the twin (ops/pyramid.py::pyramid_plain) at every level and output",
+           "timed_calls": TIMED_CALLS, "ptxas": ptxas[key],
+           "shapes": {label: {part: row[part] for part in parts} | {"plain_chain": row["plain"]}
+                      for label, row in pyramid_rows.items()}}
+          for key, name, parts in (("k12", "pyramid_base", ("k12", "build")),
+                                   ("k13", "pyramid_down", ("k13_level1", "k13_level2")))),
         entry("bilateral_splat (K2)", "align3d_torch/csrc/bilateral.cu", "align3d_tpu/ops/bilateral.py:80",
               "splat", splat, "max |kernel - plain|", ptxas=ptxas["splat"],
               launches_by_path=paths("splat"),

@@ -1131,6 +1131,173 @@ def test_gn_update_ptxas_report(cuda_device):
     assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
 
 
+# -- K12, K13: the range-image pyramid ---------------------------------------------------
+
+PYRAMID_FRAMES = 65  # a 64-pair batch step's frames
+
+
+@pytest.fixture(scope="module")
+def pyramid_inputs(cuda_device):
+    """Per sample: (colours, int32 depths, per-frame scales, camera) of
+    PYRAMID_FRAMES frames cycled through the sequence, on the card."""
+    out = {}
+    for name in ("sample1", "sample2"):
+        ds = SlamTbDataset.load(str(RGBD / name))
+        frames = [ds.get(i) for i in range(len(ds))]
+        pick = [frames[i % len(frames)] for i in range(PYRAMID_FRAMES)]
+        colors = torch.from_numpy(np.stack([f.image.color for f in pick])).to(cuda_device)
+        depths = torch.from_numpy(np.stack([f.image.depth.astype(np.int32) for f in pick])).to(cuda_device)
+        # One scale a frame, each its own, around the recording's.
+        scales = torch.from_numpy((np.float32(frames[0].image.depth_scale)
+                                   * np.linspace(0.9, 1.1, PYRAMID_FRAMES)).astype(np.float32))
+        out[name] = (colors, depths, scales, frames[0].image.depth_scale, frames[0].camera)
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _pyramid_against_twin(args, levels: int):
+    """K12 and K13 through ops/pyramid.py::build against the plain twin on
+    the card: every output of every level bitwise (the sign of zero too),
+    one launch a level. Returns the kernels' levels."""
+    from align3d_torch.ops import pyramid as pyr
+
+    before = pyr.BASE_LAUNCHES + pyr.DOWN_LAUNCHES
+    got = pyr.build(*args)
+    assert pyr.BASE_LAUNCHES + pyr.DOWN_LAUNCHES == before + levels
+    ref = pyr.pyramid_plain(*args)
+    assert len(got) == len(ref) == levels
+    for k, (g, r) in enumerate(zip(got, ref)):
+        for field in pyr.Level._fields:
+            a, b = getattr(g, field), getattr(r, field)
+            assert (a is None) == (b is None), (k, field)
+            if a is not None:
+                assert _same_bits(a, b), (k, field)
+    return got
+
+
+@pytest.mark.parametrize("scale_kind", ["float", "per_frame"])
+@pytest.mark.parametrize("batch", [1, PYRAMID_FRAMES])
+@pytest.mark.parametrize("name", ["sample1", "sample2"])
+def test_pyramid_kernels_bitwise_twin(pyramid_inputs, name, batch, scale_kind):
+    colors, depths, scales, scale, camera = pyramid_inputs[name]
+    if batch == 1:
+        colors, depths, scales = colors[1], depths[1], scales[1]
+    else:
+        colors, depths, scales = colors[:batch], depths[:batch], scales[:batch]
+    _pyramid_against_twin((True, True, 3, 1.0, camera, scales if scale_kind == "per_frame" else scale, colors,
+                           depths), 3)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_pyramid_kernels_levels(pyramid_inputs, levels):
+    colors, depths, _, scale, camera = pyramid_inputs["sample1"]
+    _pyramid_against_twin((True, True, levels, 1.0, camera, scale, colors[:3], depths[:3]), levels)
+
+
+@pytest.mark.parametrize("flags", [(False, True), (True, False), (False, False)])
+def test_pyramid_kernels_flags_off(pyramid_inputs, flags):
+    colors, depths, _, scale, camera = pyramid_inputs["sample2"]
+    got = _pyramid_against_twin((*flags, 3, 1.0, camera, scale, colors[:2], depths[:2]), 3)
+    assert all((lv.normals is not None) == flags[0] for lv in got)
+    assert all((lv.intensity_map is not None) == flags[1] for lv in got)
+
+
+def test_pyramid_kernels_odd_shape(pyramid_inputs):
+    """479x639: the windows' float32 picks (ratios 479 / 239, 239 / 119, ...)
+    and the blur's clamped borders at odd sizes, four levels, three frames."""
+    colors, depths, scales, _, camera = pyramid_inputs["sample1"]
+    _pyramid_against_twin((True, True, 4, 1.0, camera, scales[:3], colors[:3, :479, :639].contiguous(),
+                           depths[:3, :479, :639].contiguous()), 4)
+
+
+def test_pyramid_kernels_empty_and_blind_frames(pyramid_inputs, cuda_device):
+    """An all-zero depth frame, and a 479x639 frame whose level 1 has valid
+    pixels and level 2 none (every level-2 window invalid), beside a real
+    frame in one batch."""
+    from _torch_pyramid_cases import level2_blind_depth
+
+    colors, depths, _, scale, camera = pyramid_inputs["sample1"]
+    colors = colors[:3, :479, :639].contiguous()
+    depth = depths[:3, :479, :639].clone()
+    depth[0] = 0
+    depth[1] = torch.from_numpy(level2_blind_depth(479, 639)).to(cuda_device)
+    got = _pyramid_against_twin((True, True, 3, 1.0, camera, scale, colors, depth.contiguous()), 3)
+    assert not bool(got[0].mask[0].any()) and bool(got[1].mask[1].any()) and not bool(got[2].mask[1].any())
+
+
+def test_pyramid_kernels_batch_bitwise_single(pyramid_inputs):
+    """Each frame of a 65-frame launch is bitwise its own one-frame launch."""
+    from align3d_torch.ops import pyramid as pyr
+
+    colors, depths, scales, _, camera = pyramid_inputs["sample2"]
+    batch = pyr.build(True, True, 3, 1.0, camera, scales, colors, depths)
+    for i in (0, 7, PYRAMID_FRAMES - 1):
+        one = pyr.build(True, True, 3, 1.0, camera, scales[i], colors[i], depths[i])
+        for lb, lo in zip(batch, one):
+            for field in pyr.Level._fields:
+                assert _same_bits(getattr(lb, field)[i], getattr(lo, field)), (i, field)
+
+
+def test_pyramid_launches_a_build(pyramid_inputs, cuda_device):
+    """RangeImageBuilder.build and the batched build: one K12 and one K13 a
+    coarser level, nothing of the plain chain."""
+    from align3d_torch.ops import pyramid as pyr
+    from align3d_torch.parallel.batch import build_pyramids_batched
+
+    ds = SlamTbDataset.load(str(RGBD / "sample1"))
+    counts = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+    RangeImageBuilder(bilateral_filter=bil.BilateralFilter()).build(ds.get(2), cuda_device)
+    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 1, counts[1] + 2)
+    colors, depths, scales, _, camera = pyramid_inputs["sample1"]
+    build_pyramids_batched(camera, scales, colors, depths)
+    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 2, counts[1] + 4)
+
+
+def test_pyramid_kernels_reject_bad_inputs(pyramid_inputs):
+    from align3d_torch.ops import pyramid as pyr
+
+    colors, depths, _, scale, camera = pyramid_inputs["sample1"]
+    color, depth = colors[0], depths[0]
+    counts = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+    bad_base = [
+        (depth.to(torch.int16), color),  # dtype
+        (depth.to(torch.float32), color),
+        (depth, color.to(torch.int32)),
+        (depth, color.cpu()),  # device
+        (depth.t().contiguous().t(), color),  # contiguity
+        (depth, color[:, :, [2, 1, 0]].permute(2, 0, 1).contiguous().permute(1, 2, 0)),
+        (depth, color[:-1]),  # shape
+    ]
+    for d, c in bad_base:
+        with pytest.raises(ValueError):
+            pyr.pyramid_base(d, c, scale, camera, True, True)
+    level = pyr.pyramid_base(depth, color, scale, camera, True, True)
+    for bad in (level._replace(points=level.points.double()), level._replace(mask=level.mask.to(torch.uint8)),
+                level._replace(normals=level.normals.cpu()), level._replace(colors=level.colors[:, ::2]),
+                level._replace(points=level.points.transpose(0, 1).contiguous().transpose(0, 1))):
+        with pytest.raises(ValueError):
+            pyr.pyramid_down(bad, 1.0, True)
+    with pytest.raises(ValueError):
+        pyr.pyramid_down(level, 9.0, True)  # more blur taps than K13 takes
+    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 1, counts[1])
+
+
+def test_pyramid_ptxas_report(cuda_device):
+    """K12 and K13 built (-fmad=false among their flags) with no spills."""
+    from align3d_torch import _kernels
+
+    _kernels.lib()
+    for name in ("pyramid_base_kernel", "pyramid_down_kernel"):
+        lines = _kernels.ptxas_report(name)
+        assert sum("Compiling entry function" in line for line in lines) == 1, lines
+        assert all("spill" not in line or "0 bytes spill stores, 0 bytes spill loads" in line for line in lines), lines
+
+
 # -- P1, P2: the roofline probes ------------------------------------------------------
 
 
