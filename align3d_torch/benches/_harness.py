@@ -15,9 +15,9 @@ calls the port's own entry point, and :func:`measure`:
   constant of each bench). Per repeat: **wall** ms a call, from one CUDA
   event pair around the k calls (where the host is the bound this includes
   the device's idle gaps: it is not device time), and **host** ms a call,
-  from ``time.perf_counter`` ended by one synchronise. The launches the
-  kernels' counters issued over the last repeat (reset just before, read
-  just after) stand beside the launches the profiler saw over its k calls.
+  from ``time.perf_counter`` ended by one synchronise. The launches of
+  each of the port's kernels (``_kernels.launches()``) over the last repeat
+  stand beside the launches the profiler saw over its k calls.
 
 On the CPU (``--device cpu``) wall and host are the same clock, and the
 device numbers and the card are null. :func:`record` prints the JSON line:
@@ -40,25 +40,8 @@ import time
 
 import torch
 
-from align3d_torch.ops import bilateral, icp_fused, icp_pallas_v3, icp_pallas_v4, mesh, nn_banded, pyramid
-from align3d_torch.viz import sphere
+from align3d_torch import _kernels
 
-#: The port's kernels on the benches' paths: the symbol the profiler shows
-#: and the counters their wrappers add one to a launch.
-KERNELS = {
-    "K1": ("icp_step_kernel", [(icp_fused, "LAUNCHES")]),
-    "K2": ("bilateral_splat", [(bilateral, "SPLAT_LAUNCHES")]),
-    "K3": ("bilateral_slice", [(bilateral, "NORMALIZE_SLICE_LAUNCHES"), (bilateral, "SLICE_LAUNCHES")]),
-    "K4": ("nn_banded", [(nn_banded, "LAUNCHES")]),
-    "K5": ("mesh_normals", [(mesh, "LAUNCHES")]),
-    "K6": ("column_mean", [(sphere, "MEAN_LAUNCHES")]),
-    "K7": ("icp_banded_kernel<false>", [(icp_pallas_v3, "LAUNCHES")]),
-    "K8": ("icp_banded_kernel<true>", [(icp_pallas_v4, "LAUNCHES")]),
-    "K9": ("source_centroids_kernel", [(icp_pallas_v3, "CENTROIDS_LAUNCHES")]),
-    "K10": ("predict_bases_kernel", [(icp_pallas_v3, "PREDICT_LAUNCHES")]),
-    "K12": ("pyramid_base_kernel", [(pyramid, "BASE_LAUNCHES")]),
-    "K13": ("pyramid_down_kernel", [(pyramid, "DOWN_LAUNCHES")]),
-}
 RUNS, WARMUP = 5, 2
 TO_UNIT = {"ms": 1.0, "us": 1e3, "s": 1e-3}  # from ms
 QUICK_RUNS, QUICK_WARMUP = 2, 1
@@ -93,8 +76,6 @@ def setup(name: str) -> torch.device:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("this bench runs on cuda and no CUDA device is available (pass --device cpu)")
-        from align3d_torch import _kernels
-
         t0 = time.perf_counter()
         _kernels.build()
         _kernels.lib()
@@ -107,16 +88,6 @@ def setup(name: str) -> torch.device:
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def counts() -> dict:
-    return {k: sum(getattr(m, attr) for m, attr in counters) for k, (_, counters) in KERNELS.items()}
-
-
-def reset_counts() -> None:
-    for _, counters in KERNELS.values():
-        for m, attr in counters:
-            setattr(m, attr, 0)
 
 
 @dataclasses.dataclass
@@ -157,13 +128,14 @@ def measure(fn, device: torch.device, args: argparse.Namespace, calls: int | Non
         for _ in range(args.warmup - 1):  # device_ms makes the last warm-up call itself
             fn()
         busy, acts = device_ms(fn, calls)
-        seen = {k: sum(symbol in name for name, _ in acts) for k, (symbol, _) in KERNELS.items()}
+        seen = {k: sum(any(part in name for part in row.device) for name, _ in acts)
+                for k, row in _kernels.KERNELS.items()}
     else:
         for _ in range(args.warmup):
             fn()
     wall, host = [], []
     for _ in range(args.runs):
-        reset_counts()
+        before = _kernels.launches()
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -176,7 +148,8 @@ def measure(fn, device: torch.device, args: argparse.Namespace, calls: int | Non
         sync(device)
         host.append((time.perf_counter() - t0) * 1e3 / calls)
         wall.append(start.elapsed_time(end) / calls if cuda else host[-1])
-    issued = counts()  # the last repeat's (on the CPU the plain twins launch nothing)
+    # The last repeat's (on the CPU the plain twins launch nothing).
+    issued = _kernels.launches(before)
     return Timing(calls, wall, host, busy, issued, seen, result)
 
 

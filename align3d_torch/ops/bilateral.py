@@ -51,11 +51,9 @@ from align3d_torch import _kernels
 _SPACE_PAD = 2
 _COLOR_PAD = 2
 
-#: Launches of the CUDA splat kernel, of the slice kernel's form (a) and of
-#: its form (b) (set to 0 to reset).
-SPLAT_LAUNCHES = 0
-SLICE_LAUNCHES = 0
-NORMALIZE_SLICE_LAUNCHES = 0
+# Read by benchmark/trace.py; goes when a benchmark change reads _kernels.launches() instead.
+__getattr__ = _kernels.legacy_counts(
+    __name__, {"SPLAT_LAUNCHES": "K2", "SLICE_LAUNCHES": "K3a", "NORMALIZE_SLICE_LAUNCHES": "K3b"})
 #: Calls of :func:`_normalize`, each a pass over whole grids (set to 0 to reset).
 NORMALIZE_PASSES = 0
 
@@ -181,29 +179,27 @@ def _splat(image, color_min, grid_shape, sigma_space: float, sigma_color: float)
     if image.dtype != torch.int32 or image.ndim < 2 or not image.is_contiguous():
         raise ValueError("_splat takes contiguous (..., H, W) int32 depth images")
 
-    global SPLAT_LAUNCHES
     frames, cmin = _frames(image, color_min)
     out = torch.empty((*image.shape[:-2], 2, *grid_shape), dtype=torch.float32, device=image.device)
-    _splat_launch(_kernels.lib().a3d_bilateral_splat, frames, cmin, grid_shape, sigma_space, sigma_color, out)
-    SPLAT_LAUNCHES += 1
+    _splat_launch(frames, cmin, grid_shape, sigma_space, sigma_color, out)
     return out
 
 
-def _splat_launch(entry, frames, cmin, grid_shape, sigma_space: float, sigma_color: float, out) -> None:
-    """Launch the splat C entry point ``entry`` (``a3d_bilateral_splat`` of
-    a build of ``csrc/bilateral.cu``) on (B, H, W) int32 frames with their
-    (B,) int32 color_min, into the contiguous grids ``out``."""
+def _splat_launch(frames, cmin, grid_shape, sigma_space: float, sigma_color: float, out, library=None) -> None:
+    """Launch K2 on (B, H, W) int32 frames with their (B,) int32
+    color_min, into the contiguous grids ``out``. ``library``: another build
+    of ``csrc/bilateral.cu`` (the ablation tool's); the library's by
+    default."""
     gh, gw, gd = grid_shape
     bsz, h, w = frames.shape
     ridx, rwt, cidx, cwt = _splat_tables(h, w, gh, gw, sigma_space, frames.device)
-    status = entry(
-        frames.data_ptr(), cmin.data_ptr(), bsz, h, w, float(np.float32(1.0 / sigma_color)),
+    _kernels.launch(
+        "K2", frames.data_ptr(), cmin.data_ptr(), bsz, h, w, float(np.float32(1.0 / sigma_color)),
         ridx.data_ptr(), rwt.data_ptr(), ridx.shape[1],
         cidx.data_ptr(), cwt.data_ptr(), cidx.shape[1],
         gh, gw, gd, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(frames.device).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(frames.device).cuda_stream), library=library,
     )
-    _kernels.check(status, "a3d_bilateral_splat")
 
 
 # -- blur and normalize ----------------------------------------------------
@@ -319,10 +315,7 @@ def _slice(grid, image, color_min, sigma_space: float, sigma_color: float) -> to
     kernel's form (a)."""
     if image.device.type == "cpu":
         return _slice_plain(grid, image, color_min, sigma_space, sigma_color)
-    global SLICE_LAUNCHES
-    out = _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=False)
-    SLICE_LAUNCHES += 1
-    return out
+    return _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=False)
 
 
 def _normalize_slice(grid, image, color_min, sigma_space: float, sigma_color: float) -> torch.Tensor:
@@ -332,18 +325,15 @@ def _normalize_slice(grid, image, color_min, sigma_space: float, sigma_color: fl
     writes the (..., H, W) int32 output directly."""
     if image.device.type == "cpu":
         return _normalize_slice_plain(grid, image, color_min, sigma_space, sigma_color)
-    global NORMALIZE_SLICE_LAUNCHES
-    out = _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=True)
-    NORMALIZE_SLICE_LAUNCHES += 1
-    return out
+    return _slice_launch(grid, image, color_min, sigma_space, sigma_color, fused=True)
 
 
 def _slice_launch(grid, image, color_min, sigma_space: float, sigma_color: float, fused: bool,
-                  entry=None) -> torch.Tensor:
-    """One launch of the slice kernel on CUDA tensors: form (b) (int32 out)
-    with ``fused``, else form (a) (float32 out). ``entry``: the C entry point
-    ``a3d_bilateral_slice`` of another build of ``csrc/bilateral.cu`` than
-    the library's."""
+                  library=None) -> torch.Tensor:
+    """One launch of the slice kernel on CUDA tensors: form (b) (K3b, int32
+    out) with ``fused``, else form (a) (K3a, float32 out). ``library``:
+    another build of ``csrc/bilateral.cu`` (the ablation tool's); the
+    library's by default."""
     if image.device.type != "cuda":
         raise ValueError(f"the slice runs on cuda or cpu tensors, got {image.device}")
     if image.dtype != torch.int32 or image.ndim < 2 or not image.is_contiguous():
@@ -361,14 +351,13 @@ def _slice_launch(grid, image, color_min, sigma_space: float, sigma_color: float
     bsz, h, w = frames.shape
     tables = _slice_tables(h, w, gh, gw, sigma_space, image.device)
     out = torch.empty(image.shape, dtype=torch.int32 if fused else torch.float32, device=image.device)
-    status = (entry or _kernels.lib().a3d_bilateral_slice)(
-        grid.data_ptr(), frames.data_ptr(), cmin.data_ptr(), bsz, h, w, gh, gw, gd,
+    _kernels.launch(
+        "K3b" if fused else "K3a", grid.data_ptr(), frames.data_ptr(), cmin.data_ptr(), bsz, h, w, gh, gw, gd,
         float(np.float32(1.0 / sigma_color)),
         *(t.data_ptr() for t in tables),
         int(fused), out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(image.device).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(image.device).cuda_stream), library=library,
     )
-    _kernels.check(status, "a3d_bilateral_slice")
     return out
 
 

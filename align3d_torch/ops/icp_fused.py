@@ -33,8 +33,8 @@ from align3d_torch.ops.target_pack import GEO_CHANNELS, pack_intensity_taps, tap
 from align3d_torch.optim.gauss_newton import GNSystem, huber_weight
 from align3d_torch.se3 import Transform
 
-#: Launches of the CUDA kernel since the last reset (set it to 0 to reset).
-LAUNCHES = 0
+# Read by benchmark/trace.py; goes when a benchmark change reads _kernels.launches() instead.
+__getattr__ = _kernels.legacy_counts(__name__, {"LAUNCHES": "K1"})
 
 _THREADS = 256
 _PIXELS_PER_THREAD = 8
@@ -187,7 +187,6 @@ def icp_step_fused(
     if rot.device.type != "cuda":
         raise ValueError(f"icp_step_fused runs on cuda or cpu tensors, got {rot.device}")
 
-    global LAUNCHES
     dev = rot.device
     bsz, n = points.shape[0], h * w
     f32, u8 = torch.float32, torch.uint8
@@ -210,9 +209,8 @@ def icp_step_fused(
     arrivals = _arrivals(dev, stream, bsz)
     out = torch.empty((bsz, 2, 8, 8), dtype=f32, device=dev)
     huber = 0.0 if params.huber_delta is None else params.huber_delta
-    lib = _kernels.lib()
-    status = lib.a3d_icp_step(
-        rot.data_ptr(), trans.data_ptr(), points.data_ptr(), mask.data_ptr(), intensity.data_ptr(),
+    _kernels.launch(
+        "K1", rot.data_ptr(), trans.data_ptr(), points.data_ptr(), mask.data_ptr(), intensity.data_ptr(),
         geo.data_ptr(), intensity_map.data_ptr(),
         bsz, n, h, w,
         intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy,
@@ -223,6 +221,4 @@ def icp_step_fused(
         partials.data_ptr(), nblk, arrivals.data_ptr(), out.data_ptr(),
         ctypes.c_void_p(stream),
     )
-    _kernels.check(status, "a3d_icp_step")
-    LAUNCHES += 1
     return out

@@ -60,11 +60,8 @@ DY_RADIUS = 1  # default candidate-row radius around the predicted row
 NCH = 7  # packed target channels
 BLOCKS_PER_TILE = 2  # csrc/icp_banded.cu's blocks a (chunk, group) tile: partials per tile
 
-#: Launches of K7 since the last reset (set it to 0 to reset).
-LAUNCHES = 0
-#: Launches of K9 (the source centroids) and K10 (the bases from them).
-CENTROIDS_LAUNCHES = 0
-PREDICT_LAUNCHES = 0
+# Read by benchmark/trace.py; goes when a benchmark change reads _kernels.launches() instead.
+__getattr__ = _kernels.legacy_counts(__name__, {"CENTROIDS_LAUNCHES": "K9", "PREDICT_LAUNCHES": "K10"})
 
 _XLA_WINDOW = 32  # XLA's CPU reduce: 16-row x 32-lane windows, each added in order
 _INT_SUMS_MAX = 8192  # K9's integer sums of a tile's rows / columns stay below 2^24 up to this many
@@ -285,14 +282,11 @@ def source_centroids_batched(source_pack: torch.Tensor, intrinsics: CameraIntrin
     out = torch.empty(tiles * 6, dtype=torch.float32, device=dev)  # one allocation, four contiguous outputs
     pbar = out[: 3 * tiles].view(bsz, nchunks, g, 3)
     rowbar, colbar, cnt = (out[k * tiles : (k + 1) * tiles].view(bsz, nchunks, g) for k in (3, 4, 5))
-    status = _kernels.lib().a3d_source_centroids(
-        source_pack.data_ptr(), bsz, nchunks, g, _f32(intrinsics.cx), _f32(intrinsics.cy),
+    _kernels.launch(
+        "K9", source_pack.data_ptr(), bsz, nchunks, g, _f32(intrinsics.cx), _f32(intrinsics.cy),
         _f32(1.0 / intrinsics.fx), _f32(1.0 / intrinsics.fy), pbar.data_ptr(), rowbar.data_ptr(),
         colbar.data_ptr(), cnt.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _kernels.check(status, "a3d_source_centroids")
-    global CENTROIDS_LAUNCHES
-    CENTROIDS_LAUNCHES += 1
     return pbar, rowbar, colbar, cnt
 
 
@@ -344,15 +338,12 @@ def predict_bases_centroid_batched(rotation, translation, centroids, intrinsics,
     chunk_base = out[: bsz * nchunks].view(bsz, nchunks)
     dy_base, dx_base = (out[bsz * nchunks + k * tiles : bsz * nchunks + (k + 1) * tiles].view(bsz, nchunks, g)
                         for k in (0, 1))
-    status = _kernels.lib().a3d_predict_bases(
-        rotation.data_ptr(), translation.data_ptr(), pbar.data_ptr(), rowbar.data_ptr(), colbar.data_ptr(),
+    _kernels.launch(
+        "K10", rotation.data_ptr(), translation.data_ptr(), pbar.data_ptr(), rowbar.data_ptr(), colbar.data_ptr(),
         cnt.data_ptr(), bsz, nchunks, g, _f32(intrinsics.fx), _f32(intrinsics.fy), _f32(intrinsics.cx),
         _f32(intrinsics.cy), max(hp - _band(hp), 0), chunk_base.data_ptr(), dy_base.data_ptr(), dx_base.data_ptr(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _kernels.check(status, "a3d_predict_bases")
-    global PREDICT_LAUNCHES
-    PREDICT_LAUNCHES += 1
     return chunk_base, dy_base, dx_base
 
 
@@ -590,11 +581,11 @@ def icp_step_plain(rotation, translation, chunk_base, dy_base, dx_base, source_p
 
 def launch(variant: int, rotation, translation, chunk_base, dy_base, dx_base, source_pack, target_pack,
            intrinsics: CameraIntrinsics, h: int, w: int, params_tuple: tuple, emit_stats: bool, nch: int,
-           pack_dtype: torch.dtype, entry=None):
+           pack_dtype: torch.dtype, library=None):
     """One launch of ``csrc/icp_banded.cu`` over B pairs: ``variant`` 0 is
     K7 (float32 pack), 1 is K8 (int32 pack, bf16 stack). Returns (geo, col,
-    stats or None). ``entry``: another build's ``a3d_icp_banded`` (the
-    ablation tool's); the library's by default."""
+    stats or None). ``library``: another build of the source (the ablation
+    tool's); the library's by default."""
     dev = rotation.device
     bsz, nchunks, _, k, _ = source_pack.shape
     g = k // CHUNK
@@ -616,17 +607,16 @@ def launch(variant: int, rotation, translation, chunk_base, dy_base, dx_base, so
     arrivals = _arrivals(dev, stream, bsz)  # shared with K1: launches on a stream run in order
     out = torch.empty((bsz, 2, 8, 8), dtype=f32, device=dev)
     stats = torch.empty((bsz, nchunks, 3, g, 8, 128), dtype=f32, device=dev) if emit_stats else None
-    status = (entry or _kernels.lib().a3d_icp_banded)(
-        variant, rotation.data_ptr(), translation.data_ptr(), chunk_base.data_ptr(), dy_base.data_ptr(),
-        dx_base.data_ptr(), source_pack.data_ptr(), target_pack.data_ptr(),
+    _kernels.launch(
+        ("K7", "K8")[variant], variant, rotation.data_ptr(), translation.data_ptr(), chunk_base.data_ptr(),
+        dy_base.data_ptr(), dx_base.data_ptr(), source_pack.data_ptr(), target_pack.data_ptr(),
         bsz, nchunks, g, h, w, c["radius"],
         _f32(intrinsics.fx), _f32(intrinsics.fy), _f32(intrinsics.cx), _f32(intrinsics.cy),
         _f32(1.0 / intrinsics.fx), _f32(1.0 / intrinsics.fy),
         c["max_dist2"], c["cos_angle"], c["max_color2"], c["huber"],
         partials.data_ptr(), arrivals.data_ptr(), out.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        ctypes.c_void_p(stream),
+        ctypes.c_void_p(stream), library=library,
     )
-    _kernels.check(status, "a3d_icp_banded")
     return out[:, 0], out[:, 1], stats
 
 
@@ -653,10 +643,7 @@ def icp_step_pallas_batched(
         return icp_step_plain(*args, emit_stats=emit_stats)
     if rotation.device.type != "cuda":
         raise ValueError(f"icp_step_pallas_batched runs on cuda or cpu tensors, got {rotation.device}")
-    global LAUNCHES
-    out = launch(0, *args, emit_stats, NCH, torch.float32)
-    LAUNCHES += 1
-    return out
+    return launch(0, *args, emit_stats, NCH, torch.float32)
 
 
 def icp_step_pallas(rotation, translation, chunk_base, dy_base, dx_base, source_pack, target_pack, intrinsics,

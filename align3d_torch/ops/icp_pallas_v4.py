@@ -26,14 +26,15 @@ from __future__ import annotations
 
 import torch
 
+from align3d_torch import _kernels
 from align3d_torch.ops import icp_pallas_v3 as k3
 from align3d_torch.ops.icp_fused import _f32
 from align3d_torch.ops.icp_pallas_v3 import CHUNK, DY_RADIUS, pack_source  # noqa: F401  (v4 shares v3's source pack)
 
 NCH = 5  # packed target channels (int32)
 
-#: Launches of K8 since the last reset (set it to 0 to reset).
-LAUNCHES = 0
+# Read by benchmark/trace.py; goes when a benchmark change reads _kernels.launches() instead.
+__getattr__ = _kernels.legacy_counts(__name__, {"LAUNCHES": "K8"})
 
 _MASK_HI = -65536  # 0xFFFF0000 as an int32
 
@@ -111,9 +112,7 @@ def icp_step_pallas_batched(
         return icp_step_plain(*args)
     if rotation.device.type != "cuda":
         raise ValueError(f"icp_step_pallas_batched runs on cuda or cpu tensors, got {rotation.device}")
-    global LAUNCHES
     geo, col, _ = k3.launch(1, *args, False, NCH, torch.int32)
-    LAUNCHES += 1
     return geo, col
 
 

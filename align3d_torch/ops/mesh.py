@@ -28,9 +28,6 @@ import torch
 
 from align3d_torch import _kernels
 
-#: Launches of the CUDA kernel since the last reset (set it to 0 to reset).
-LAUNCHES = 0
-
 
 def _normal(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """(..., 3) corners -> (..., 3) unit normals of cross(p1 - p0, p2 - p0),
@@ -146,14 +143,9 @@ def _topology(table: torch.Tensor, counts: torch.Tensor) -> tuple:
 
 def _launch(points: torch.Tensor, topology: tuple) -> torch.Tensor:
     """One launch of K5 on checked tensors; returns the (N, 3) output."""
-    global LAUNCHES
     out = torch.empty((points.shape[0], 3), dtype=torch.float32, device=points.device)
-    status = _kernels.lib().a3d_mesh_normals(
-        points.data_ptr(), *topology, out.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(points.device).cuda_stream),
-    )
-    _kernels.check(status, "a3d_mesh_normals")
-    LAUNCHES += 1
+    _kernels.launch("K5", points.data_ptr(), *topology, out.data_ptr(),
+                    ctypes.c_void_p(torch.cuda.current_stream(points.device).cuda_stream))
     return out
 
 

@@ -39,9 +39,6 @@ NBANDS = 9  # one band per (dx, dy) offset; the dz cells are contiguous
 _NO_WINNER = 2**31 - 1  # position of a query whose scores were all NaN
 _PLAIN_BLOCKS = 8  # query blocks per chunk of the plain twin (peak memory, not results)
 
-#: Launches of the CUDA kernel since the last reset (set it to 0 to reset).
-LAUNCHES = 0
-
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
@@ -217,7 +214,6 @@ def band_search(
     if planes.device.type != "cuda":
         raise ValueError(f"band_search runs on cuda or cpu tensors, got {planes.device}")
 
-    global LAUNCHES
     dev = planes.device
     tiles = planes.shape[0]
     qp = queries.shape[1]
@@ -235,14 +231,12 @@ def band_search(
     score = torch.empty(qp, dtype=torch.float32, device=dev)
     pos = torch.empty(qp, dtype=torch.int32, device=dev)
     pay = torch.empty((4, qp), dtype=torch.float32, device=dev) if payload else None
-    status = _kernels.lib().a3d_nn_banded(
-        planes.data_ptr(), queries.data_ptr(), bstarts.data_ptr(),
+    _kernels.launch(
+        "K4", planes.data_ptr(), queries.data_ptr(), bstarts.data_ptr(),
         nblocks, tiles, band_width // 128, int(payload),
         score.data_ptr(), pos.data_ptr(), None if pay is None else pay.data_ptr(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _kernels.check(status, "a3d_nn_banded")
-    LAUNCHES += 1
     return score, pos, pay
 
 

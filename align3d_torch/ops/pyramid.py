@@ -10,8 +10,7 @@ halves the last: points and normals by the masked 2x2 nearest-to-mean pick
 
 On CUDA tensors :func:`build` launches K12 (``csrc/pyramid.cu``,
 ``pyramid_base_kernel``) for level 0 and K13 (``pyramid_down_kernel``) for
-each coarser one, and counts them in ``BASE_LAUNCHES`` and
-``DOWN_LAUNCHES``; on CPU tensors it runs :func:`pyramid_plain`, the
+each coarser one; on CPU tensors it runs :func:`pyramid_plain`, the
 composition of those functions, which the kernels repeat bitwise. Leading
 frame axes pass through: depth (..., H, W), colour (..., H, W, 3), the
 depth scale a number or a tensor of the leading shape.
@@ -34,8 +33,6 @@ from align3d_torch.ops.intensity import BORDER, build_intensity_map
 from align3d_torch.ops.normals import compute_normals
 from align3d_torch.ops.resize import resize_nearest_to_mean
 
-BASE_LAUNCHES = 0  # K12 launches
-DOWN_LAUNCHES = 0  # K13 launches
 MAX_TAPS = 32  # K13's blur taps (sigma 1: 5)
 
 
@@ -138,15 +135,12 @@ def pyramid_base(depth: torch.Tensor, color: torch.Tensor, depth_scale: float | 
     else:
         scale = float(depth_scale)
     out = _outputs(lead, h, w, with_normals, with_intensity, dev)
-    status = _kernels.lib().a3d_pyramid_base(
-        depth.data_ptr(), color.data_ptr(), _ptr(scales), scale, bsz, h, w,
+    _kernels.launch(
+        "K12", depth.data_ptr(), color.data_ptr(), _ptr(scales), scale, bsz, h, w,
         intrinsics.fx, intrinsics.fy, intrinsics.cx, intrinsics.cy,
         out["points"].data_ptr(), out["mask"].data_ptr(), _ptr(out["normals"]), _ptr(out["intensities"]),
         _ptr(out["intensity_map"]), _stream(dev),
     )
-    _kernels.check(status, "a3d_pyramid_base")
-    global BASE_LAUNCHES
-    BASE_LAUNCHES += 1
     return Level(colors=color, **out)
 
 
@@ -180,15 +174,12 @@ def pyramid_down(fine: Level, blur_sigma: float, with_intensity: bool) -> Level:
     lo, ntaps, weights = _taps(blur_sigma)
     out = _outputs(lead, dh, dw, normals is not None, with_intensity, dev)
     colors_d = torch.empty((*lead, dh, dw, 3), dtype=torch.uint8, device=dev)
-    status = _kernels.lib().a3d_pyramid_down(
-        points.data_ptr(), _ptr(normals), mask.data_ptr(), colors.data_ptr(), bsz, h, w, dh, dw,
+    _kernels.launch(
+        "K13", points.data_ptr(), _ptr(normals), mask.data_ptr(), colors.data_ptr(), bsz, h, w, dh, dw,
         float(np.float32(h / dh)), float(np.float32(w / dw)), lo, ntaps, weights,
         out["points"].data_ptr(), _ptr(out["normals"]), out["mask"].data_ptr(), colors_d.data_ptr(),
         _ptr(out["intensities"]), _ptr(out["intensity_map"]), _stream(dev),
     )
-    _kernels.check(status, "a3d_pyramid_down")
-    global DOWN_LAUNCHES
-    DOWN_LAUNCHES += 1
     return Level(colors=colors_d, **out)
 
 

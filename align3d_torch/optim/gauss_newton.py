@@ -23,9 +23,6 @@ import torch
 from align3d_torch import _kernels
 from align3d_torch.se3 import Transform
 
-#: Launches of K11 (one a GN iteration of the image ICP loop on the card).
-LAUNCHES = 0
-
 
 @dataclasses.dataclass
 class GNSystem:
@@ -164,15 +161,12 @@ def gn_update(geom_aug: torch.Tensor, color_aug: torch.Tensor, w1: float, w2: fl
         raise ValueError(f"gn_update runs on cuda or cpu tensors, got {dev}")
     bsz = state.rot.shape[0]
     stride = _check_blocks(geom_aug, color_aug, bsz, dev)
-    status = _kernels.lib().a3d_gn_update(
-        geom_aug.data_ptr(), color_aug.data_ptr(), stride, bsz,
+    _kernels.launch(
+        "K11", geom_aug.data_ptr(), color_aug.data_ptr(), stride, bsz,
         float(np.float32(w1 * w1)), float(np.float32(w2 * w2)), w1, w2,
         state.rot.data_ptr(), state.trans.data_ptr(), state.best_res.data_ptr(), state.best_rot.data_ptr(),
         state.best_trans.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
-    _kernels.check(status, "a3d_gn_update")
-    global LAUNCHES
-    LAUNCHES += 1
 
 
 def huber_weight(residuals: torch.Tensor, delta: float) -> torch.Tensor:

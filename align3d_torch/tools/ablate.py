@@ -141,7 +141,7 @@ def build_variants(source: str, variants: dict[str, dict[str, int]], entries) ->
 def build_bilateral(variants: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
     """``bilateral.cu`` per variant, its splat and slice entry points typed."""
     return build_variants("bilateral.cu", variants, lambda _: {
-        e: _kernels._SIGNATURES[e] for e in ("a3d_bilateral_splat", "a3d_bilateral_slice")})
+        e: _kernels.ENTRIES[e] for e in ("a3d_bilateral_splat", "a3d_bilateral_slice")})
 
 
 def grid_mesh(side: int, freq: float = 0.1) -> tuple[np.ndarray, np.ndarray]:
@@ -164,13 +164,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
-def splat_with(fn, frames: torch.Tensor, cmin: torch.Tensor, grid_shape, sigma_space: float,
+def splat_with(library, frames: torch.Tensor, cmin: torch.Tensor, grid_shape, sigma_space: float,
                sigma_color: float) -> torch.Tensor:
-    """``ops.bilateral._splat`` of (B, H, W) frames through the entry point ``fn``."""
+    """``ops.bilateral._splat`` of (B, H, W) frames through the build ``library``."""
     from align3d_torch.ops import bilateral as bil
 
     out = torch.empty((frames.shape[0], 2, *grid_shape), dtype=torch.float32, device=frames.device)
-    bil._splat_launch(fn, frames, cmin, grid_shape, sigma_space, sigma_color, out)
+    bil._splat_launch(frames, cmin, grid_shape, sigma_space, sigma_color, out, library=library)
     return out
 
 
@@ -190,20 +190,20 @@ def splat_exact(device) -> dict:
     shapes = {"frame": (one, one_min.reshape(1), one_shape),
               "series": (series, smin, (*bil._grid_dims(*series.shape[-2:], filt.sigma_space), gd))}
     libs = build_bilateral({"exact": {"A3D_SPLAT_EXACT": 1}, "ordered": {"A3D_SPLAT_EXACT": 0}})
-    variants = {name: lib.a3d_bilateral_splat for name, lib in libs.items()}
     out = {}
     for label, (frames, cmin, shape) in shapes.items():
         args = (frames, cmin, shape, filt.sigma_space, filt.sigma_color)
         ref = bil._splat_plain(*args)
         row = {"frames": frames.shape[0], "grid": [2, *shape]}
-        for name, fn in variants.items():
-            row[f"{name}_bitwise"] = torch.equal(splat_with(fn, *args), ref)
+        for name, library in libs.items():
+            row[f"{name}_bitwise"] = torch.equal(splat_with(library, *args), ref)
         del ref
         for name in ("exact", "ordered", "ordered", "exact"):
-            fn = variants[name]
-            row.setdefault(f"{name}_ms", []).append(device_ms(lambda: splat_with(fn, *args), CALLS[label],
+            library = libs[name]
+            row.setdefault(f"{name}_ms", []).append(device_ms(lambda: splat_with(library, *args), CALLS[label],
                                                               "bilateral_splat")[0])
-            row.setdefault(f"{name}_event_ms", []).append(time_ms(lambda: splat_with(fn, *args), reps=CALLS[label]))
+            row.setdefault(f"{name}_event_ms", []).append(time_ms(lambda: splat_with(library, *args),
+                                                                  reps=CALLS[label]))
         if not (row["exact_bitwise"] and row["ordered_bitwise"]):
             raise AssertionError(f"a K2 build differs from its plain twin at the {label} shape")
         out[label] = row
@@ -295,10 +295,9 @@ def slice_pixels(device) -> dict:
         refs = {"a": bil._slice_plain(norm, *args), "b": bil._normalize_slice_plain(grids, *args)}
         row = {}
         for name in ("pixels4", "pixels1", "pixels2", "pixels2", "pixels1", "pixels4"):
-            entry = libs[name].a3d_bilateral_slice
             for form, (g, fused) in forms.items():
-                def call(g=g, fused=fused):
-                    return bil._slice_launch(g, *args, fused=fused, entry=entry)
+                def call(g=g, fused=fused, library=libs[name]):
+                    return bil._slice_launch(g, *args, fused=fused, library=library)
 
                 key = f"{name}_{form}"
                 row.setdefault(f"{key}_bitwise", torch.equal(call(), refs[form]))
@@ -348,7 +347,7 @@ MESH_VARIANTS = {
 def _mesh_entry_types(name: str) -> dict:
     design = MESH_VARIANTS[name]["A3D_MESH_DESIGN"]
     if design == 1:
-        return {"a3d_mesh_normals": _kernels._SIGNATURES["a3d_mesh_normals"]}
+        return {"a3d_mesh_normals": _kernels.ENTRIES["a3d_mesh_normals"]}
     return {"a3d_mesh_normals": MESH_BUFFERED if design in (0, 2) else MESH_BUFFERED[:7] + MESH_BUFFERED[8:]}
 
 
@@ -472,7 +471,7 @@ def table_gather(device) -> dict:
                 "l2fetch": {"A3D_ABLATE_L2_FETCH": 1}}
     chains = {"ilp8_u8": (8, 8), "ilp16_u4": (16, 4)}
     libs = build_variants("roofline.cu", variants, lambda name: {
-        "a3d_gather_table": _kernels._SIGNATURES["a3d_gather_table"],
+        "a3d_gather_table": _kernels.ENTRIES["a3d_gather_table"],
         **({"a3d_l2_fetch_granularity": [_I, ctypes.POINTER(_I)]} if name == "l2fetch" else {})})
     p = rl.Probes(device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -578,7 +577,7 @@ def banded_sections(device) -> dict:
     from align3d_torch.tools import roofline as rl
 
     libs = build_variants("icp_banded.cu", BANDED_VARIANTS,
-                          lambda _: {"a3d_icp_banded": _kernels._SIGNATURES["a3d_icp_banded"]})
+                          lambda _: {"a3d_icp_banded": _kernels.ENTRIES["a3d_icp_banded"]})
     kinds = {"K7": (0, True, k3.NCH, torch.float32, k3.icp_step_pallas_batched),
              "K8": (1, False, k4.NCH, torch.int32, k4.icp_step_pallas_batched)}
     out = {}
@@ -587,7 +586,7 @@ def banded_sections(device) -> dict:
         out[key] = {}
         for shape, args in shapes.items():
             def call(name, args=args):
-                return k3.launch(variant, *args, stats, nch, dtype, entry=libs[name].a3d_icp_banded)
+                return k3.launch(variant, *args, stats, nch, dtype, library=libs[name])
 
             lib_out = wrapper(*args, **({"emit_stats": True} if stats else {}))
             full = call("full")

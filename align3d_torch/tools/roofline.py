@@ -50,10 +50,6 @@ TABLE_ILP, TABLE_U = 4, 16
 _FMA_SCALE = 1.0000001
 _M32 = 0xFFFFFFFF
 
-#: Launches of the probe kernels (set to 0 to reset).
-FMA_LAUNCHES = 0
-GATHER_LAUNCHES = 0
-
 #: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -105,11 +101,8 @@ def fma_chains(x: torch.Tensor, steps: int) -> torch.Tensor:
     _cuda_or_raise("fma_chains", x)
     if x.dtype != torch.float32 or x.ndim != 1:
         raise ValueError("fma_chains takes a float32 vector")
-    global FMA_LAUNCHES
     out = torch.empty_like(x)
-    _kernels.check(_kernels.lib().a3d_fma_peak(x.data_ptr(), out.data_ptr(), x.numel(), steps, _stream(x)),
-                   "a3d_fma_peak")
-    FMA_LAUNCHES += 1
+    _kernels.launch("P1", x.data_ptr(), out.data_ptr(), x.numel(), steps, _stream(x))
     return out
 
 
@@ -146,11 +139,9 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor, steps: int) -> torch.Tensor:
     if x.dtype != torch.int32 or tuple(x.shape) != (rows, ROW) or idx.dtype != torch.int32 \
             or tuple(idx.shape) != (LANE_ILP, rows, ROW):
         raise ValueError("lane_gather takes int32 x (rows, 128) and idx (4, rows, 128)")
-    global GATHER_LAUNCHES
     out = torch.empty_like(x)
-    _kernels.check(_kernels.lib().a3d_gather_lane(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, steps,
-                                                  _stream(x)), "a3d_gather_lane")
-    GATHER_LAUNCHES += 1
+    _kernels.launch("P2", x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, steps, _stream(x),
+                    entry="a3d_gather_lane")
     return out
 
 
@@ -205,11 +196,9 @@ def table_gather(table: torch.Tensor, x: torch.Tensor, steps: int) -> torch.Tens
     if table.dtype != torch.int32 or x.dtype != torch.int32 or table.ndim != 1 or x.ndim != 1 \
             or not 0 < table.numel() < 2**32:
         raise ValueError("table_gather takes an int32 table (m,), 0 < m < 2^32, and int32 x (n,)")
-    global GATHER_LAUNCHES
     out = torch.empty_like(x)
-    _kernels.check(_kernels.lib().a3d_gather_table(table.data_ptr(), table.numel(), x.data_ptr(), out.data_ptr(),
-                                                   x.numel(), steps, _stream(x)), "a3d_gather_table")
-    GATHER_LAUNCHES += 1
+    _kernels.launch("P2", table.data_ptr(), table.numel(), x.data_ptr(), out.data_ptr(), x.numel(), steps,
+                    _stream(x), entry="a3d_gather_table")
     return out
 
 

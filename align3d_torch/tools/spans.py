@@ -26,8 +26,9 @@ lines:
 * ``launches``: of the trace's K1 (``icp_step_kernel``) and K8
   (``icp_banded_kernel``) launches, how many the runtime's launch call of
   lies inside a ``gn.step`` span, against the ``gn.step`` spans and the
-  port's launch counters (K1's, K8's and K11's, one a ``gn.iter``; K12's
-  and K13's, the pyramid's, one a level of each build).
+  launches of each of the port's kernels (``_kernels.launches()``: K1's,
+  K8's and K11's, one a ``gn.iter``; K12's and K13's, the pyramid's, one a
+  level of each build).
 
 ``--ranks N`` (N cards) runs instead the frame-sharded step on N processes,
 one a card, as a multi-card deployment does: each hands its own 64-frame
@@ -59,10 +60,8 @@ import torch
 from align3d_torch import MultiscaleAlign, RangeImageBuilder
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.image import RgbdFrame, RgbdImage
-from align3d_torch.ops import icp_fused, icp_pallas_v4
-from align3d_torch.ops import pyramid as pyramid_ops
+from align3d_torch import _kernels
 from align3d_torch.ops.bilateral import BilateralFilter
-from align3d_torch.optim import gauss_newton
 from align3d_torch.parallel.batch import odometry_step
 from align3d_torch.tools import series
 from align3d_torch.utils import profiling
@@ -275,8 +274,6 @@ def sharded_rank(rank: int, ranks: int, address: str, out: str) -> None:
 
     device = torch.device(DEVICE, rank)
     torch.cuda.set_device(device)
-    from align3d_torch import _kernels
-
     _kernels.lib()
     multihost.initialize(address, ranks, rank, local_device_ids=[rank],
                          timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
@@ -366,8 +363,6 @@ def main(argv=None) -> int:
         print(json.dumps(sharded(args.ranks)), flush=True)
         return 0
     device = torch.device(DEVICE)
-    from align3d_torch import _kernels
-
     _kernels.lib()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "torch": torch.__version__, "control": args.control,
                       "profiler_flag": hasattr(torch.autograd.profiler, "_is_profiler_enabled")}), flush=True)
@@ -395,16 +390,13 @@ def main(argv=None) -> int:
     print(json.dumps(phase("after a CUDA-only profile", tracker, s, device)), flush=True)
 
     if not args.control:
-        counts0 = (icp_fused.LAUNCHES, icp_pallas_v4.LAUNCHES, gauss_newton.LAUNCHES, pyramid_ops.BASE_LAUNCHES,
-                   pyramid_ops.DOWN_LAUNCHES)
+        counts0 = _kernels.launches()
         with tempfile.TemporaryDirectory(prefix="spans_trace_") as log_dir:
             with profiling.trace(log_dir):
                 spans = profiled_units(tracker, s, device)
             with open(os.path.join(log_dir, "trace.json")) as f:
                 data = json.load(f)
-        counts = {"K1": icp_fused.LAUNCHES - counts0[0], "K8": icp_pallas_v4.LAUNCHES - counts0[1],
-                  "K11": gauss_newton.LAUNCHES - counts0[2], "K12": pyramid_ops.BASE_LAUNCHES - counts0[3],
-                  "K13": pyramid_ops.DOWN_LAUNCHES - counts0[4]}
+        counts = _kernels.launches(counts0)
         base, events = int(data.get("baseTimeNanoseconds", 0)), data["traceEvents"]
         intervals, kernels = chrome_device(events, base)
         for part, roots in PARTS.items():

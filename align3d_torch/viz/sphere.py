@@ -21,9 +21,6 @@ import torch
 
 from align3d_torch import _kernels
 
-#: Launches of K6 (set to 0 to reset).
-MEAN_LAUNCHES = 0
-
 
 def numpy_means_plain(points: torch.Tensor, counts: list[int]) -> torch.Tensor:
     """K6's plain twin: numpy's ``mean(axis=0)`` (the JAX package's own
@@ -39,7 +36,6 @@ def numpy_means(points: torch.Tensor, counts: list[int]) -> torch.Tensor:
     bit for bit, on the points' device: one K6 launch on the card."""
     if points.device.type == "cpu":
         return numpy_means_plain(points, counts)
-    global MEAN_LAUNCHES
     n = points.shape[0]
     _kernels.check_tensor(points, "points", (n, 3), torch.float32, points.device)
     if not counts or min(counts) < 1 or sum(counts) != n:
@@ -47,9 +43,7 @@ def numpy_means(points: torch.Tensor, counts: list[int]) -> torch.Tensor:
     offsets = torch.tensor([0, *np.cumsum(counts).tolist()], dtype=torch.int64).to(points.device)
     out = torch.empty((len(counts), 3), dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    _kernels.check(_kernels.lib().a3d_column_mean(points.data_ptr(), offsets.data_ptr(), len(counts), out.data_ptr(),
-                                                  stream), "a3d_column_mean")
-    MEAN_LAUNCHES += 1
+    _kernels.launch("K6", points.data_ptr(), offsets.data_ptr(), len(counts), out.data_ptr(), stream)
     return out
 
 

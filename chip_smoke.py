@@ -42,8 +42,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    throughput series: every output of every level bitwise the plain twin,
    one K12 and two K13 launches a 3-level build; each launch, the whole
    build and the plain chain timed beside the byte bound.
-4. Drive each path with its kernels' launch counts reset just before and
-   read just after; the filter paths (4a, 4d) must slice through K3's form
+4. Drive each path with its kernels' launch counts read just before and
+   just after; the filter paths (4a, 4d) must slice through K3's form
    (b) only, with no launch of form (a) and no ``_normalize`` pass:
    a. odometry: ``run_odometry`` on sample1, 10 frames, bilateral filter on;
       the trajectory error against ground truth, the poses against the JAX
@@ -92,8 +92,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    ran and decode ms per frame of ``io/png.py``, the native loader and the
    prefetcher's wait in ``get``; host ms per frame with and without the
    prefetcher; ``RgbdFrame.downsample(1.0)`` on the card against the CPU.
-8. Global refinement, each path with K1-K3's launch counts reset just
-   before and read just after, all printed as one ``global refinement:``
+8. Global refinement, each path with K1-K3's launch counts read just
+   before and just after, all printed as one ``global refinement:``
    JSON line:
    a. ``tests/test_loop_closure_e2e.py`` on the card: the 18-frame
       palindrome of sample1 (0-11, then 10 to 0 in steps of 2), 640x480,
@@ -306,6 +306,13 @@ KERNEL_NAMES = {"icp": ("icp_step_kernel",), "splat": ("bilateral_splat",), "sli
                 "centroids": ("source_centroids_kernel",), "predict": ("predict_bases_kernel",),
                 "k11": ("gn_update_kernel",), "k12": ("pyramid_base_kernel",), "k13": ("pyramid_down_kernel",)}
 ODOMETRY_KERNELS = ("icp", "splat", "slice")  # the kernels phase 5's frame profile reads
+#: The counts this script reads, by its names for them: the launches of a
+#: kernel of ``_kernels.KERNELS`` (``_kernels.launches()``), or None for
+#: ``ops/bilateral.py``'s ``NORMALIZE_PASSES`` (plain-PyTorch passes).
+COUNTS = {"icp": "K1", "splat": "K2", "slice": "K3b", "slice_a": "K3a", "nn": "K4", "mesh": "K5", "k6": "K6",
+          "k7": "K7", "k8": "K8", "k9": "K9", "k10": "K10", "k11": "K11", "k12": "K12", "k13": "K13",
+          "p1": "P1", "p2": "P2", "normalize": None}
+ODOMETRY_COUNTS = ("icp", "splat", "slice", "slice_a", "normalize", "k11")  # what the odometry paths read
 #: The repository's nine ``pl.pallas_call`` sites, by the kernel that replaces them.
 PALLAS_CALLS = {"K1": [], "K7": ["align3d_tpu/ops/icp_pallas_v3.py:761"],
                 "K8": ["align3d_tpu/ops/icp_pallas_v4.py:508"], "K2": ["align3d_tpu/ops/bilateral.py:171"],
@@ -613,11 +620,12 @@ def check_gn_update(torch, pyr0, pyr1) -> tuple:
                 blocks = step(state.rot, state.trans)
                 ref = gn.GNState(*(getattr(state, f).clone() for f in fields))
                 gn.gn_update_plain(*blocks, w1, w2, ref)
-                best, launches = state.best_res.clone(), gn.LAUNCHES
+                best, before = state.best_res.clone(), snapshot(("k11",))
                 gn.gn_update(*blocks, w1, w2, state)
                 torch.cuda.synchronize()
-                if gn.LAUNCHES != launches + 1:
-                    raise AssertionError(f"{label}: {gn.LAUNCHES - launches} launches for one update")
+                launches = since(before)["k11"]
+                if launches != 1:
+                    raise AssertionError(f"{label}: {launches} launches for one update")
                 for f in fields:
                     if not torch.equal(torch.isnan(getattr(state, f)), torch.isnan(getattr(ref, f))):
                         raise AssertionError(f"{label}, iteration {it}: NaN in other places of {f} than the twin's")
@@ -695,12 +703,13 @@ def check_pyramid(torch) -> dict:
         b = 1 if depth.ndim == 2 else depth.shape[0]
         h, w = depth.shape[-2:]
         args = (True, True, 3, 1.0, camera, scale, color, depth)
-        before = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+        before = snapshot(("k12", "k13"))
         got = pyr.build(*args)
         torch.cuda.synchronize()
-        if (pyr.BASE_LAUNCHES - before[0], pyr.DOWN_LAUNCHES - before[1]) != (1, 2):
-            raise AssertionError(f"pyramid {label}: {pyr.BASE_LAUNCHES - before[0]} K12 and "
-                                 f"{pyr.DOWN_LAUNCHES - before[1]} K13 launches for a 3-level build")
+        launches = since(before)
+        if (launches["k12"], launches["k13"]) != (1, 2):
+            raise AssertionError(f"pyramid {label}: {launches['k12']} K12 and {launches['k13']} K13 launches "
+                                 "for a 3-level build")
         ref = pyr.pyramid_plain(*args)
         for k, (g, r) in enumerate(zip(got, ref)):
             for field in pyr.Level._fields:
@@ -882,9 +891,9 @@ def pcl_path(torch, nn, Icp, IcpParams, Transform, TransformMetrics, target, sou
     icp = Icp(params, *target)
     if icp.nn_engine != "banded":
         raise AssertionError(f"the default engine on the card is {icp.nn_engine}")
-    nn.LAUNCHES = 0
+    before = snapshot(("nn",))
     first = icp.align(*source)
-    launches = nn.LAUNCHES
+    launches = since(before)["nn"]
     resorts = icp.last_resorts
     second = icp.align(*source)
     hashed = Icp(params, *target, nn_engine="hash").align(*source)
@@ -917,11 +926,11 @@ def pcl_path(torch, nn, Icp, IcpParams, Transform, TransformMetrics, target, sou
 
 def mesh_path(torch, mesh, teapot, grid_pts, grid_faces) -> int:
     """Phase 4c; returns K5's launches over the two MeshNormals calls."""
-    mesh.LAUNCHES = 0
+    before = snapshot(("mesh",))
     tea = mesh.MeshNormals(teapot.faces, len(teapot.points), device=DEVICE)(torch.from_numpy(teapot.points).to(DEVICE))
     grid_normals = mesh.MeshNormals(grid_faces, len(grid_pts), device=DEVICE)(torch.from_numpy(grid_pts).to(DEVICE))
     torch.cuda.synchronize()
-    launches = mesh.LAUNCHES
+    launches = since(before)["mesh"]
     tea_cpu = mesh.MeshNormals(teapot.faces, len(teapot.points), device="cpu")(torch.from_numpy(teapot.points))
     err = float((torch.nan_to_num(tea.cpu()) - torch.nan_to_num(tea_cpu)).abs().max())
     print(f"mesh normals: teapot.ply on the card vs the CPU path max |diff| {err}; "
@@ -1190,20 +1199,25 @@ def series_inputs(torch, s):
             torch.from_numpy(s.depth_scales).to(DEVICE))
 
 
-def reset_counts(counters: dict) -> None:
-    """``counters``: name -> (module, attribute) of a launch count."""
-    for module, attr in counters.values():
-        setattr(module, attr, 0)
+def snapshot(names) -> dict:
+    """The counts of ``names`` (keys of :data:`COUNTS`) so far in this process."""
+    from align3d_torch import _kernels
+    from align3d_torch.ops import bilateral
+
+    got = _kernels.launches()
+    return {n: bilateral.NORMALIZE_PASSES if COUNTS[n] is None else got[COUNTS[n]] for n in names}
 
 
-def read_counts(counters: dict) -> dict:
-    return {name: getattr(module, attr) for name, (module, attr) in counters.items()}
+def since(before: dict) -> dict:
+    """The counts of ``before``'s names since that :func:`snapshot`."""
+    now = snapshot(before)
+    return {n: now[n] - before[n] for n in before}
 
 
 def throughput_path(torch, real, mixed, counters) -> dict:
     """Phase 4d: ``odometry_step`` on the 64-pair real series, bilateral off
     and bucketed on, then the mixed series; the checks of the module
-    docstring. ``counters``: name -> (module, attribute) of launch counts."""
+    docstring. ``counters``: the names of the launch counts it reads (:data:`COUNTS`)."""
     from align3d_torch.icp.image_icp import prepack_batched
     from align3d_torch.icp.multiscale import MultiscaleAlign
     from align3d_torch.icp.params import MsIcpParams
@@ -1221,10 +1235,10 @@ def throughput_path(torch, real, mixed, counters) -> dict:
     out = {}
     trajs = {}
     for label, f in (("off", None), ("on", filt)):
-        reset_counts(counters)
+        before = snapshot(counters)
         traj = pb.odometry_step(real.camera, scales, colors, depths, params, bilateral_filter=f, device=DEVICE)
         torch.cuda.synchronize()
-        launches = read_counts(counters)
+        launches = since(before)
         plan = bucket_plan(real.depths, filt)
         want = {"icp": STEP_ITERATIONS, "splat": len(plan) if f else 0, "slice": len(plan) if f else 0,
                 "slice_a": 0, "normalize": 0, "k11": STEP_ITERATIONS}
@@ -1305,11 +1319,11 @@ def throughput_path(torch, real, mixed, counters) -> dict:
     per_frame = all(torch.equal(filt.filter_static(mdepths[b], int(cmin[b]), g, g), filtered[b])
                     for b, g in ((b, bil.true_depth(int(cmin[b]), int(cmax[b]), filt.sigma_color))
                                  for b in range(len(mdepths))))
-    reset_counts(counters)
+    before = snapshot(counters)
     torch.cuda.reset_peak_memory_stats()
     mtraj = pb.odometry_step(mixed.camera, mscales, mcolors, mdepths, params, bilateral_filter=filt, device=DEVICE)
     torch.cuda.synchronize()
-    mlaunch = read_counts(counters)
+    mlaunch = since(before)
     peak = torch.cuda.max_memory_allocated()
     mrel = relative_poses(mtraj)
     true = torch.from_numpy(mixed.true_pairs()).to(DEVICE)
@@ -1474,17 +1488,17 @@ def data_path(torch, dataset, builder, counters, slamtb_launches: dict) -> dict:
                 "--device", DEVICE]
         runs = {}
         for name, frames, extra in (("cut", TUM_CUT, []), ("resumed", FRAMES, ["--save-trajectory", str(saved)])):
-            reset_counts(counters)
+            before = snapshot(counters)
             if cli.main(argv[:3] + [str(frames)] + argv[3:] + extra) != 0:
                 raise RuntimeError(f"the {name} TUM run exited non-zero")
-            runs[name] = read_counts(counters)
+            runs[name] = since(before)
         want = {"cut": expected(TUM_CUT, TUM_CUT - 1), "resumed": expected(FRAMES - TUM_CUT + 1, FRAMES - TUM_CUT)}
         resumed, next_frame = load_odometry(str(ck))
 
         # One uninterrupted run, plain; then the same frames prefetched.
-        reset_counts(counters)
+        before = snapshot(counters)
         plain, plain_ms = run_timed(TumRgbdDataset.load(str(tree)))
-        runs["uninterrupted"] = read_counts(counters)
+        runs["uninterrupted"] = since(before)
         want["uninterrupted"] = expected(FRAMES, FRAMES - 1)
         pre = maybe_prefetch(TumRgbdDataset.load(str(tree)))
         if isinstance(pre, PrefetchingDataset) != out["native_loader"]:
@@ -1754,13 +1768,13 @@ def palindrome_path(torch, dataset, counters) -> tuple[dict, list]:
     last = len(PALINDROME) - 1
     cheap = MsIcpParams.default().customize(lambda _, p: p.replace(max_iterations=CHEAP_ITERATIONS))
     kwargs = {"min_separation": last - 1, "max_translation": 0.5, "max_candidates": 4, "closure_weight": 20.0}
-    reset_counts(counters)
+    before = snapshot(counters)
     t0 = time.perf_counter()
     raw = run_odometry(ds, DEVICE, icp_params=cheap)
     refined = refine_with_loop_closures(ds, raw, DEVICE, **kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts(counters)
+    launches = since(before)
     closures = pg.propose_loop_closures(raw.trajectory, **{k: kwargs[k] for k in kwargs if k != "closure_weight"})
     # K1 once a GN iteration: the cheap odometry's 3 levels x 2 iterations a
     # pair, and MsIcpParams.default()'s 70 a closure; no filter, so no K2/K3.
@@ -1802,13 +1816,13 @@ def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
     with tempfile.TemporaryDirectory() as tmp:
         tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, PALINDROME)
         saved = Path(tmp) / "refined.tum"
-        reset_counts(counters)
+        before = snapshot(counters)
         t0 = time.perf_counter()
         rc = cli.main(["odometry", "tum", str(tree), "--loop-closure", "--save-trajectory", str(saved), "-q",
                        "--device", DEVICE])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_counts(counters)
+        launches = since(before)
         text = saved.read_text()
         ds = TumRgbdDataset.load(str(tree))
         builder = RangeImageBuilder(bilateral_filter=BilateralFilter())
@@ -1978,7 +1992,7 @@ def launch_want(real, filt) -> dict:
 def distribution_paths(torch, mesh, counters, device) -> dict:
     """Phase 9a-9d on ``mesh``, as one rank runs them: the sharded step and
     the sequence-parallel step on the real series (filter on), each with
-    K1-K3's counts reset just before and read just after, its stages timed
+    K1-K3's counts read just before and just after, its stages timed
     (StageTimer), its device busy ms and the peak memory; the 500-pose graph
     (CG) and the 9-pose ring (dense) with edges sharded; BA at 500 x 50k x
     200k (COO) and the 6 x 40 scene (dense) with observations sharded.
@@ -2007,12 +2021,12 @@ def distribution_paths(torch, mesh, counters, device) -> dict:
         torch.cuda.synchronize()
         timer = StageTimer()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(counters)
+        before = snapshot(counters)
         t0 = time.perf_counter()
         traj = run(timer)
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
-        launches = read_counts(counters)
+        launches = since(before)
         peak = torch.cuda.max_memory_allocated()
         out[name] = {"poses": (traj.camera_to_world.rotation.cpu(), traj.camera_to_world.translation.cpu()),
                      "launches": launches, "host_ms": host, "stage_host_ms": stage_ms(timer),
@@ -2063,9 +2077,6 @@ def distribution_rank(rank: int, world: int, store: str, out_dir: str, device: s
 
     import torch
 
-    from align3d_torch.ops import bilateral as bil
-    from align3d_torch.ops import icp_fused
-    from align3d_torch.optim import gauss_newton
     from align3d_torch.parallel import multihost
 
     torch.set_num_threads(2)
@@ -2073,10 +2084,7 @@ def distribution_rank(rank: int, world: int, store: str, out_dir: str, device: s
                          backend="gloo", timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
     try:
         mesh = multihost.global_mesh(devices=device)
-        counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
-                    "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
-                    "normalize": (bil, "NORMALIZE_PASSES"), "k11": (gauss_newton, "LAUNCHES")}
-        out = distribution_paths(torch, mesh, counters, torch.device(device))
+        out = distribution_paths(torch, mesh, ODOMETRY_COUNTS, torch.device(device))
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -2228,13 +2236,13 @@ def distribution(torch, dataset, counters, trip_activities_8c=None) -> tuple[dic
               "closure_weight": 20.0}
     raw = run_odometry(ds, DEVICE, icp_params=cheap)
     plain = refine_with_loop_closures(ds, raw, DEVICE, **kwargs).trajectory.camera_to_world
-    reset_counts(counters)
+    before = snapshot(counters)
     sharded = refine_with_loop_closures(ds, raw, DEVICE, mesh=mesh, **kwargs).trajectory.camera_to_world
     gap = max_pose_gap(torch, plain, sharded)
     out["world1"]["refine_with_loop_closures"] = {"max_abs_vs_no_mesh": gap,
                                                   "bitwise": bitwise_pair(torch, (plain.rotation, plain.translation),
                                                                           (sharded.rotation, sharded.translation)),
-                                                  "launches": read_counts(counters)}
+                                                  "launches": since(before)}
     if not gap <= CLI_DIRECT_ATOL:
         failures.append(f"9e: refine_with_loop_closures(mesh=) is {gap} from the call without a mesh")
     torch.distributed.destroy_process_group()
@@ -2479,9 +2487,9 @@ def viz_dataset(torch, failures: list) -> dict:
     from align3d_torch.viz import sphere
 
     for name, viewers in (("preview_sample1", {DEVICE: preview}), ("scene_8_frames", scene)):
-        sphere.MEAN_LAUNCHES = 0
+        before = snapshot(("k6",))
         got = render_on_both(torch, viewers, lambda v: v.render_frame())
-        got["k6_launches"] = sphere.MEAN_LAUNCHES  # one fit of all nodes, kept through every later render
+        got["k6_launches"] = since(before)["k6"]  # one fit of all nodes, kept through every later render
         got["points"], got["nodes"] = scene_points(viewers[DEVICE]), len(viewers[DEVICE].scene.nodes)
         got.update(fit_costs(torch, viewers[DEVICE]))
         img = got.pop("_image")
@@ -2558,11 +2566,11 @@ def viz_meshes(torch, failures: list) -> dict:
         def draw(v):
             return v.scene.render(v.renderer, camera)
 
-        mesh.LAUNCHES = 0
+        before = snapshot(("mesh",))
         draw(viewers[DEVICE])
         draw(viewers[DEVICE])
         torch.cuda.synchronize()
-        two = mesh.LAUNCHES
+        two = since(before)["mesh"]
         got = render_on_both(torch, viewers, draw, cpu_runs=1 if len(faces) > 1_000_000 else 3)
         got.pop("_image")
         world = viewers[DEVICE].scene.nodes[0].world_points()
@@ -2603,11 +2611,11 @@ def viz_cli(torch, counters, failures: list, odometry_launches: dict) -> dict:
         out["viewer_animate_s"] = time.perf_counter() - t0
         out["viewer_animate_frames"] = len(gif_frames((Path(tmp) / "fly.gif").read_bytes()))
         s = Path(tmp) / "s.png"
-        reset_counts(counters)
+        before = snapshot(counters)
         t0 = time.perf_counter()
         cli.main(["odometry", "slamtb", str(SAMPLE1), str(FRAMES), "--show", str(s), "--device", DEVICE, "-q"])
         out["odometry_show_s"] = time.perf_counter() - t0
-        out["odometry_show_launches"] = read_counts(counters)
+        out["odometry_show_launches"] = since(before)
         shown = png.read(s)
         out["odometry_show_png"] = {"shape": list(shown.shape), "lit_pixels": int((shown[..., :3] > 0).any(-1).sum())}
     if not out["viewer_png_equal_direct"]:
@@ -2678,9 +2686,7 @@ def viz_interactive(torch, failures: list) -> dict:
 
 def viz(torch, counters, odometry_launches: dict) -> tuple[dict, list]:
     """Phase 10; returns (what it measured, its failures)."""
-    from align3d_torch.ops import mesh
-
-    counters = {**counters, "mesh": (mesh, "LAUNCHES")}
+    counters = (*counters, "mesh")
     out, failures = {"phase_s": {}}, []
     for name, path in (("dataset", lambda: viz_dataset(torch, failures)),
                        ("meshes", lambda: viz_meshes(torch, failures)),
@@ -2829,25 +2835,28 @@ def direct_results(torch, name: str, mod, line: dict):
 def bench_launch_failures(name: str, line: dict) -> list:
     """The launches a bench's line reports against what its path issues,
     and the profiler's count beside them (reported, not gated)."""
-    # K10 once a banded GN iteration; K9 once a banded align (3 an odometry step, one a level); K12
-    # once and K13 twice an odometry step (its 3-level pyramids).
+    # K10 once a banded GN iteration; K11 once a GN iteration of an align (not of the kernel-only
+    # calls); K9 once a banded align (3 an odometry step, one a level); K12 once and K13 twice an
+    # odometry step (its 3-level pyramids).
     pyramids = {"K12": 1, "K13": 2}
-    banded_step = {"K8": STEP_ITERATIONS, "K9": 3, "K10": STEP_ITERATIONS, **pyramids}
-    want = {"bench_image_icp": {"K8": 10, "K10": 10}, "bench_icp_kernel": {"K7": 10}, "bench_pcl_icp": {"K4": 10},
-            "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1}, "bench_bilateral": {"K2": 1, "K3": 1},
-            "bench_odometry": banded_step, "bench_scaling": {"K1": STEP_ITERATIONS, **pyramids}}.get(name, {})
+    exact_step = {"K1": STEP_ITERATIONS, "K11": STEP_ITERATIONS, **pyramids}
+    banded_step = {"K8": STEP_ITERATIONS, "K9": 3, "K10": STEP_ITERATIONS, "K11": STEP_ITERATIONS, **pyramids}
+    want = {"bench_image_icp": {"K8": 10, "K10": 10, "K11": 10}, "bench_icp_kernel": {"K7": 10},
+            "bench_pcl_icp": {"K4": 10}, "bench_voxel_nn": {"K4": 1}, "bench_mesh": {"K5": 1},
+            "bench_bilateral": {"K2": 1, "K3b": 1}, "bench_odometry": banded_step,
+            "bench_scaling": exact_step}.get(name, {})
     checks = [("line", line, want)]
     if name == "bench_image_icp":
-        checks.append(("xla", line["xla"], {"K1": 10}))
+        checks.append(("xla", line["xla"], {"K1": 10, "K11": 10}))
     if name == "bench_icp_kernel":
-        checks += [("full_align", line["full_align"], {"K7": 10, "K9": 1, "K10": 10}),
-                   ("xla_full_align", line["xla_full_align"], {"K1": 10}),
+        checks += [("full_align", line["full_align"], {"K7": 10, "K9": 1, "K10": 10, "K11": 10}),
+                   ("xla_full_align", line["xla_full_align"], {"K1": 10, "K11": 10}),
                    ("xla_kernel_only", line["xla_kernel_only"], {"K1": 10})]
     if name == "bench_odometry":
-        checks.append(("xla", line["xla"], {"K1": STEP_ITERATIONS, **pyramids}))
+        checks.append(("xla", line["xla"], exact_step))
         for key in ("real", "mixed", "synthetic"):
             on = line["series"][key]["on"]
-            checks.append((f"{key} filter on", on, {**banded_step, "K2": on["buckets"], "K3": on["buckets"]}))
+            checks.append((f"{key} filter on", on, {**banded_step, "K2": on["buckets"], "K3b": on["buckets"]}))
     out = []
     for label, summary, kernels in checks:
         if summary.get("launches") is None:  # the scaling bench's spawned worlds count none
@@ -2965,10 +2974,10 @@ def banded_odometry(torch, dataset, builder, counters, frames: int, params, want
     from align3d_torch.odometry import run_odometry
 
     subset = SubsetDataset(dataset, range(frames))
-    reset_counts(counters)
+    before = snapshot(counters)
     result = run_odometry(subset, DEVICE, range_builder=builder, icp_params=params)
     torch.cuda.synchronize()
-    launches = read_counts(counters)
+    launches = since(before)
     expected = {k: want.get(k, 0) * (frames - 1) for k in launches}
     pose = result.trajectory.camera_to_world
     out = {"frames": frames, "launches": launches, "launches_expected": expected,
@@ -3312,9 +3321,6 @@ def main() -> int:
     from align3d_torch.metrics import TransformMetrics
     from align3d_torch.odometry import run_odometry
     from align3d_torch.ops import bilateral as bil
-    from align3d_torch.ops import icp_fused
-    from align3d_torch.ops import pyramid as pyramid_ops
-    from align3d_torch.optim import gauss_newton
     from align3d_torch.range_image import RangeImageBuilder
     from align3d_torch.trajectory import Trajectory
 
@@ -3374,20 +3380,19 @@ def main() -> int:
 
     # -- 4. the main path ----------------------------------------------------
     subset = SubsetDataset(dataset, range(FRAMES))
-    icp_fused.LAUNCHES = bil.SPLAT_LAUNCHES = bil.NORMALIZE_SLICE_LAUNCHES = gauss_newton.LAUNCHES = 0
-    bil.SLICE_LAUNCHES = bil.NORMALIZE_PASSES = pyramid_ops.BASE_LAUNCHES = pyramid_ops.DOWN_LAUNCHES = 0
+    before = snapshot(("icp", "splat", "slice", "k11", "k12", "k13", "slice_a", "normalize"))
     first = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
-    launches = {"icp": icp_fused.LAUNCHES, "splat": bil.SPLAT_LAUNCHES, "slice": bil.NORMALIZE_SLICE_LAUNCHES,
-                "k11": gauss_newton.LAUNCHES, "k12": pyramid_ops.BASE_LAUNCHES, "k13": pyramid_ops.DOWN_LAUNCHES}
-    print(f"main-path launches: {launches}; K3 form (a) launches {bil.SLICE_LAUNCHES}, "
-          f"_normalize passes {bil.NORMALIZE_PASSES}")
+    launches = since(before)
+    unwanted = {k: launches.pop(k) for k in ("slice_a", "normalize")}
+    print(f"main-path launches: {launches}; K3 form (a) launches {unwanted['slice_a']}, "
+          f"_normalize passes {unwanted['normalize']}")
     if min(launches.values()) <= 0:
         return fail(f"a kernel of the main path never launched: {launches}")
     if launches["k11"] != launches["icp"]:
         return fail(f"K11 launched otherwise than once a GN iteration: {launches}")
     if (launches["k12"], launches["k13"]) != (FRAMES, 2 * FRAMES):
         return fail(f"the pyramid launched otherwise than K12 once and K13 twice a frame: {launches}")
-    if bil.SLICE_LAUNCHES or bil.NORMALIZE_PASSES:
+    if any(unwanted.values()):
         return fail("the filter normalized a grid or sliced through K3's form (a)")
     second = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
 
@@ -3429,9 +3434,7 @@ def main() -> int:
     done("phases 4b-4c")
 
     # -- 4d. the throughput path ---------------------------------------------
-    counters = {"icp": (icp_fused, "LAUNCHES"), "splat": (bil, "SPLAT_LAUNCHES"),
-                "slice": (bil, "NORMALIZE_SLICE_LAUNCHES"), "slice_a": (bil, "SLICE_LAUNCHES"),
-                "normalize": (bil, "NORMALIZE_PASSES"), "k11": (gauss_newton, "LAUNCHES")}
+    counters = ODOMETRY_COUNTS
     throughput = throughput_path(torch, real, mixed, counters)
     print("throughput path: " + json.dumps(throughput))
     done("phase 4d")
@@ -3444,9 +3447,9 @@ def main() -> int:
     done("phase 5")
 
     # -- 6. the roofline tool --------------------------------------------------
-    rl.FMA_LAUNCHES = rl.GATHER_LAUNCHES = 0
+    before = snapshot(("p1", "p2"))
     roof = rl.measure(DEVICE)
-    launches["p1"], launches["p2"] = rl.FMA_LAUNCHES, rl.GATHER_LAUNCHES
+    launches.update(since(before))
     if min(launches["p1"], launches["p2"]) <= 0:
         return fail(f"a roofline probe never launched: {launches}")
     p2, lane = roof["p2_hbm"], roof["p2_lane"]
@@ -3544,12 +3547,7 @@ def main() -> int:
     done("phase 11")
 
     # -- 12. the banded engines --------------------------------------------------
-    from align3d_torch.ops import icp_pallas_v3, icp_pallas_v4
-
-    banded_counters = {"icp": (icp_fused, "LAUNCHES"), "k7": (icp_pallas_v3, "LAUNCHES"),
-                       "k8": (icp_pallas_v4, "LAUNCHES"), "k9": (icp_pallas_v3, "CENTROIDS_LAUNCHES"),
-                       "k10": (icp_pallas_v3, "PREDICT_LAUNCHES"), "k11": (gauss_newton, "LAUNCHES")}
-    banded_out, failures = banded(torch, dataset, builder, banded_counters)
+    banded_out, failures = banded(torch, dataset, builder, ("icp", "k7", "k8", "k9", "k10", "k11"))
     print("banded: " + json.dumps(banded_out))
     if failures:
         return fail("; ".join(failures))

@@ -45,9 +45,11 @@ def spawn(fn, world: int, workdir, *args, timeout: float = TIMEOUT_S) -> None:
 
 
 def _rank_main(rank: int, fn, world: int, store: str, args) -> None:
+    from _torch_cpu import start_rank
+
     from align3d_torch.parallel import multihost
 
-    torch.set_num_threads(1)
+    start_rank()
     multihost.initialize(f"file://{store}", world, rank, backend="gloo",
                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:

@@ -17,10 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.ops import icp_pallas_v3 as j3
 from align3d_tpu.se3 import Transform as JaxTransform
 
+from align3d_torch import _kernels
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.ops import icp_pallas_v3 as t3
 
@@ -164,10 +166,10 @@ def test_band_prediction_routes_by_device():
     pose = JaxTransform.exp(jnp.asarray(TWIST, jnp.float32))
     rot, trans = torch.from_numpy(np.asarray(pose.rotation))[None], torch.from_numpy(np.asarray(pose.translation))[None]
     hp = sp.shape[1] * t3.CHUNK
-    before = (t3.CENTROIDS_LAUNCHES, t3.PREDICT_LAUNCHES)
+    before = _kernels.launches()
     centroids = t3.source_centroids_batched(sp, intr)
     bases = t3.predict_bases_centroid_batched(rot, trans, centroids, intr, hp)
-    assert (t3.CENTROIDS_LAUNCHES, t3.PREDICT_LAUNCHES) == before
+    assert _kernels.launches() == before
     assert all(torch.equal(a, b) for a, b in zip(centroids, t3.source_centroids_plain(sp, intr)))
     assert all(torch.equal(a, b) for a, b in zip(bases, t3.predict_bases_centroid_plain(rot, trans, centroids,
                                                                                           intr, hp)))
@@ -176,4 +178,4 @@ def test_band_prediction_routes_by_device():
     with pytest.raises(ValueError, match="cuda or cpu"):
         t3.predict_bases_centroid_batched(rot.to("meta"), trans.to("meta"), tuple(c.to("meta") for c in centroids),
                                           intr, hp)
-    assert (t3.CENTROIDS_LAUNCHES, t3.PREDICT_LAUNCHES) == before
+    assert _kernels.launches() == before

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.camera import CameraIntrinsics as JaxIntrinsics
 from align3d_tpu.icp import image_icp as jii
@@ -106,20 +107,27 @@ def _packs(jsrc, jtgt, src, tgt, k):
     return jsp, jtp, sp, tp
 
 
+@pytest.fixture(scope="module")
+def packs(pair):
+    """:func:`_packs` of ``pair`` for each engine: (JAX's source and target
+    packs, the port's)."""
+    return {engine: _packs(*pair, k) for engine, k in ENGINES.items()}
+
+
 @pytest.mark.parametrize("engine", ["pallas", "pallas_v4"])
-def test_packs_bitwise(pair, engine):
+def test_packs_bitwise(packs, engine):
     """Source pack and the v3 float32 / v4 int32 target packs: bitwise."""
-    jsp, jtp, sp, tp = _packs(*pair, ENGINES[engine])
+    jsp, jtp, sp, tp = packs[engine]
     assert tp.dtype == (torch.float32 if engine == "pallas" else torch.int32)
     _equal([jsp, jtp], [sp, tp])
 
 
-def test_band_prediction_bitwise(pair):
+def test_band_prediction_bitwise(pair, packs):
     """predict_bases (dense, strided), source_centroids (XLA's sum order),
     predict_bases_centroid, the kernel's displacement stats and
     bases_from_stats: the JAX package's bits."""
     jsrc, jtgt, src, tgt = pair
-    jsp, jtp, sp, tp = _packs(*pair, ENGINES["pallas"])
+    jsp, jtp, sp, tp = packs["pallas"]
     jpose, rot, trans = _pose(TWIST)
     h, w = tgt.height, tgt.width
     hp = sp.shape[0] * t3.CHUNK
@@ -142,7 +150,7 @@ def test_band_prediction_bitwise(pair):
 
 @pytest.mark.parametrize("huber", [None, 0.01])
 @pytest.mark.parametrize("engine", ["pallas", "pallas_v4"])
-def test_step_matches_jax(pair, engine, huber):
+def test_step_matches_jax(pair, packs, engine, huber):
     """One banded step at radius 2: gate counts equal (Huber weight sums
     within rtol 1e-4); H within 1e-4 x max|H|, sum w r^2 within rtol 1e-4;
     the geometric g within 1e-4 x max|g|.
@@ -158,7 +166,7 @@ def test_step_matches_jax(pair, engine, huber):
     (measured at most 4e-6 of it). A known difference (ROADMAP)."""
     jsrc, jtgt, src, tgt = pair
     jk, tk = ENGINES[engine]
-    jsp, jtp, sp, tp = _packs(*pair, ENGINES[engine])
+    jsp, jtp, sp, tp = packs[engine]
     jpose, rot, trans = _pose(TWIST)
     h, w = tgt.height, tgt.width
     hp = sp.shape[0] * t3.CHUNK
@@ -181,7 +189,7 @@ def test_step_matches_jax(pair, engine, huber):
         np.testing.assert_allclose(o[:6, 6], r[:6, 6], rtol=0, atol=1e-4 * g_scale)
 
 
-def test_pair_beyond_the_band_drops_what_jax_drops(pair):
+def test_pair_beyond_the_band_drops_what_jax_drops(pair, packs):
     """The fault the banded engines bring: at a roll the band cannot follow,
     JAX's banded count is below the exact engine's count, and the port's
     banded count is JAX's, engine by engine."""
@@ -195,7 +203,7 @@ def test_pair_beyond_the_band_drops_what_jax_drops(pair):
                             h, w, jtgt.intrinsics, params)
     pt = (params.max_distance, params.max_normal_angle, params.max_color_distance, 2, 0.0)
     for engine, (jk, tk) in ENGINES.items():
-        jsp, jtp, sp, tp = _packs(*pair, (jk, tk))
+        jsp, jtp, sp, tp = packs[engine]
         hp = sp.shape[0] * t3.CHUNK
         jb = j3.predict_bases_centroid(jpose.rotation, jpose.translation, j3.source_centroids(jsp, jtgt.intrinsics),
                                        jtgt.intrinsics, hp)
@@ -232,13 +240,18 @@ def _align_args(tgt, src, b=None):
 ALIGN_ATOL = {"pallas": (1e-4, 1e-4), "pallas_v4": (2e-4, 5e-4)}
 
 
+@pytest.fixture(scope="module")
+def pairs_32x256():
+    """:func:`_pair` at 32x256 (two lane groups), seeds 0 and 1."""
+    return _pair(32, 256), _pair(32, 256, seed=1)
+
+
 @pytest.mark.parametrize("engine", ["pallas", "pallas_v4"])
-def test_align_matches_jax(engine):
+def test_align_matches_jax(pairs_32x256, engine):
     """align_impl_pallas_v3 / _v4, one pair and a batch of two (the pairs of
     seeds 0 and 1), 3 GN iterations at radius 2, at 32x256 (two lane
     groups): poses within ALIGN_ATOL of JAX's."""
-    jt, js, tt, ts = _pair(32, 256)
-    jt1, js1, tt1, ts1 = _pair(32, 256, seed=1)
+    (jt, js, tt, ts), (jt1, js1, tt1, ts1) = pairs_32x256
     jparams = JaxIcpParams(max_iterations=3, band_radius=2, engine=engine)
     params = convert.icp_params_from_dict(dataclasses.asdict(jparams))
     atol_r, atol_t = ALIGN_ATOL[engine]
@@ -313,8 +326,8 @@ def test_odometry_step_banded_matches_jax(multiscale_jax):
     np.testing.assert_allclose(traj.translation[1].numpy(), np.asarray(ref[False].translation), atol=1e-4)
 
 
-def test_unknown_engine_raises():
-    _, _, tt, ts = _pair(32, 256)
+def test_unknown_engine_raises(pairs_32x256):
+    _, _, tt, ts = pairs_32x256[0]
     params = MsIcpParams.default()[0].replace(engine="pallas_v5", max_iterations=1)
     with pytest.raises(ValueError, match="unknown ICP engine"):
         tii.align_dispatch(torch.eye(3), torch.zeros(3), *_align_args(tt[0], ts[0]), tt[0].intrinsics, params)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from test_bundle_adjustment import INTR, _synthetic_problem
 
 from align3d_tpu.parallel import bundle_adjustment as jba

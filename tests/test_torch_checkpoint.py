@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu import checkpoint as jax_checkpoint
 from align3d_tpu.se3 import Transform as JaxTransform

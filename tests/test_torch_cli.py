@@ -7,6 +7,7 @@ slice)."""
 import argparse
 
 import pytest
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu import cli as jax_cli
 

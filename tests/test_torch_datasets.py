@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.io import datasets as jds
 from align3d_tpu.io.datasets import core as jcore
@@ -201,8 +202,8 @@ def test_cli_odometry_against_jax(trees, tmp_path, capsys, fmt):
     """The port's command line on the CPU, checkpointing every 2 frames,
     against JAX's run_odometry over the same tree (3 frames, filter on):
     each pose within 1e-3 rad / 1e-3 m, the bound of
-    tests/test_torch_odometry.py (measured without the TUM text between:
-    0 on TUM, 5.5e-6 rad / 7.9e-6 m on IndoorLidar)."""
+    tests/test_torch_odometry.py (measured: 0 on TUM, 5.2e-6 rad / 7.5e-6
+    m on IndoorLidar)."""
     from align3d_tpu.ops.bilateral import BilateralFilter as JaxFilter
     from align3d_tpu.range_image import RangeImageBuilder as JaxBuilder
 

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from _torch_dist_cases import (
     FILTER,
     SEQUENCE_SPANS,
@@ -124,15 +125,9 @@ def case(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def unsharded(case):
-    """The port without a mesh, in this process, at the ranks' one thread
-    (the CPU's reductions split their sums by thread count: at 8 threads
-    the poses differ from 1 thread's by up to 3.6e-7)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield _unsharded(case)
-    finally:
-        torch.set_num_threads(threads)
+    """The port without a mesh, in this process, at the ranks' thread count
+    (``tests/_torch_cpu.py``)."""
+    return _unsharded(case)
 
 
 def _unsharded(case):

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.camera import CameraIntrinsics as JaxIntrinsics
 from align3d_tpu.icp.image_icp import icp_step as jax_icp_step

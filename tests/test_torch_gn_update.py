@@ -7,8 +7,9 @@ is kept here. K11 itself is held to the twin on the card in
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
-from align3d_torch import RangeImageBuilder
+from align3d_torch import RangeImageBuilder, _kernels
 from align3d_torch.camera import CameraIntrinsics
 from align3d_torch.icp import image_icp
 from align3d_torch.icp.params import IcpParams, MsIcpParams
@@ -84,11 +85,11 @@ def _synthetic_step(bsz: int, seed: int = 0):
 def test_gn_loop_on_cpu_is_bitwise_the_loop_before(weights, iterations):
     params = IcpParams(max_iterations=iterations, weight=weights[0], color_weight=weights[1])
     start = Transform.exp(torch.randn(5, 6, generator=torch.Generator().manual_seed(3)) * 0.02)
-    before = gn.LAUNCHES
+    before = _kernels.launches()
     got = image_icp._gn_loop(_synthetic_step(5), start.rotation, start.translation, params)
     want = _loop_before(_synthetic_step(5), start.rotation, start.translation, params)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert gn.LAUNCHES == before
+    assert _kernels.launches() == before
     assert bool(torch.isfinite(got[2]).all()) or iterations == 0  # NaN and empty residuals are never kept
 
 
@@ -115,7 +116,7 @@ def test_align_on_cpu_is_bitwise_the_loop_before(monkeypatch, engine):
     target, source = _frames()
     base = MsIcpParams.default() if engine == "xla" else MsIcpParams.default_tpu("pallas_v4")
     params = base[0].replace(max_iterations=6)
-    before = gn.LAUNCHES
+    before = _kernels.launches()
     icp = image_icp.ImageIcp(params, target)
     got = icp.align(source)
     got_res = icp.last_residual
@@ -123,7 +124,7 @@ def test_align_on_cpu_is_bitwise_the_loop_before(monkeypatch, engine):
     want = icp.align(source)
     assert torch.equal(got.rotation, want.rotation) and torch.equal(got.translation, want.translation)
     assert got_res == icp.last_residual and np.isfinite(got_res)
-    assert gn.LAUNCHES == before
+    assert _kernels.launches() == before
 
 
 def test_gn_state_copies_the_initial_pose():

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_torch.icp.multiscale import MultiscaleAlign
 from align3d_torch.icp.params import MsIcpParams

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.camera import CameraIntrinsics as JaxIntrinsics
 from align3d_tpu.icp.image_icp import align_impl as jax_align
@@ -26,7 +27,7 @@ from align3d_tpu.ops.target_pack import pack_intensity_taps as jax_pack_taps
 from align3d_tpu.range_image import build_pyramid_impl as jax_build
 from align3d_tpu.se3 import Transform as JaxTransform
 
-from align3d_torch import convert
+from align3d_torch import _kernels, convert
 from align3d_torch.icp.image_icp import ImageIcp, align_impl, icp_step
 from align3d_torch.icp.params import IcpParams, MsIcpParams
 from align3d_torch.metrics import TransformMetrics
@@ -101,7 +102,7 @@ def test_icp_step_matches_jax(sample2_pyramids, level, huber):
         # gate counts; the Huber weight sums differ by 7.8e-3 of 107784).
         assert abs(float(o.count) - float(r.count)) <= 1e-4 * valid
         # H and g within 1e-4 x max|entry|, sum w r^2 within rtol 1e-4
-        # (measured at most 3.0e-6 on H, 7.9e-5 on g, 1.7e-7 on sum w r^2;
+        # (measured at most 3.2e-6 on H, 8.1e-6 on g, 3.4e-7 on sum w r^2;
         # g is a sum with cancellation, added in another order).
         hs, gs = np.asarray(r.hessian), np.asarray(r.gradient)
         np.testing.assert_allclose(o.hessian.numpy(), hs, rtol=0, atol=1e-4 * np.abs(hs).max())
@@ -119,13 +120,13 @@ def test_fused_step_plain_twin_layout(sample2_pyramids):
     pose = Transform.exp(torch.from_numpy(TWIST))
     pts, mask, inten = _flat(src)
     geo = pack_geometry(tgt.points, tgt.normals, tgt.mask)
-    launches = icp_fused.LAUNCHES
+    launches = _kernels.launches()
     # The fused step takes the bordered intensity map; the plain step its tap pack.
     aug = icp_fused.icp_step_fused(
         pose.rotation[None], pose.translation[None], pts[None], mask[None].to(torch.uint8), inten[None],
         geo[None], tgt.intensity_map[None], h, w, tgt.intrinsics, params,
     )
-    assert icp_fused.LAUNCHES == launches  # no kernel on the CPU
+    assert _kernels.launches() == launches  # no kernel on the CPU
     taps = pack_intensity_taps(tgt.intensity_map)
     geom, color = icp_step(pose, pts, mask, inten, geo, taps, h, w, tgt.intrinsics, params)
     for block, sys in zip(aug[0], (geom, color)):
@@ -202,8 +203,8 @@ def test_align_matches_jax(sample2_pyramids, huber):
         torch.eye(3), torch.zeros(3), *_align_args(tt[0], ts[0]), tt[0].intrinsics,
         convert.icp_params_from_dict(dataclasses.asdict(jparams)),
     )
-    # Pose atol 1e-4 (measured 8.5e-6 on R, 2.7e-5 on t without Huber;
-    # 3.1e-6 / 5.5e-6 with it).
+    # Pose atol 1e-4 (measured 6.5e-8 on R, 2.9e-7 on t without Huber;
+    # 9.1e-8 / 3.7e-7 with it).
     np.testing.assert_allclose(rot.numpy(), np.asarray(ref_r), atol=1e-4)
     np.testing.assert_allclose(trans.numpy(), np.asarray(ref_t), atol=1e-4)
     np.testing.assert_allclose(float(res), float(ref_res), rtol=1e-3)

@@ -10,6 +10,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.viz import interactive as jinteractive
 from align3d_tpu.viz import virtual_camera as jcam

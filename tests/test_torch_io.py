@@ -6,6 +6,7 @@ import zlib
 
 import numpy as np
 import pytest
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from PIL import Image
 
 from align3d_tpu import config

@@ -12,7 +12,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
+from align3d_torch import _kernels
 from align3d_torch.icp import image_icp
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.io import read_off
@@ -61,9 +63,9 @@ def test_splat_kernel_bitwise(depth_frames, name):
     depth = depth_frames[name]
     cmin, shape, _ = bil.grid_geometry(depth, SIGMA_SPACE, SIGMA_COLOR, 16)
     args = (depth, cmin, shape, SIGMA_SPACE, SIGMA_COLOR)
-    before = bil.SPLAT_LAUNCHES
+    before = _kernels.launches()
     got = bil._splat(*args)
-    assert bil.SPLAT_LAUNCHES == before + 1
+    assert _kernels.launches(before)["K2"] == 1
     assert torch.equal(got, bil._splat_plain(*args))
 
 
@@ -80,9 +82,9 @@ def test_splat_kernel_bitwise_wide_window_ragged_depth(depth_frames, name, sigma
     for cmin in (int(depth.min()), int(depth[depth > 0].min())):
         gd = bil.true_depth(cmin, int(depth.max()), SIGMA_COLOR) | 1  # odd: no column is 16-B aligned throughout
         args = (depth, cmin, (gh, gw, gd), sigma_space, SIGMA_COLOR)
-        before = bil.SPLAT_LAUNCHES
+        before = _kernels.launches()
         got = bil._splat(*args)
-        assert bil.SPLAT_LAUNCHES == before + 1
+        assert _kernels.launches(before)["K2"] == 1
         assert torch.equal(got, bil._splat_plain(*args))
 
 
@@ -106,9 +108,9 @@ def test_slice_kernel_matches_plain(depth_frames, name):
     depth = depth_frames[name]
     grid = bil.BilateralGrid.from_image(depth, SIGMA_SPACE, SIGMA_COLOR, 16).convolve().normalize()
     args = (grid.data_cm, depth, grid.color_min, SIGMA_SPACE, SIGMA_COLOR)
-    before = bil.SLICE_LAUNCHES
+    before = _kernels.launches()
     got = bil._slice(*args)
-    assert bil.SLICE_LAUNCHES == before + 1
+    assert _kernels.launches(before)["K3a"] == 1
     # Bitwise: the kernel's form (a) uses round-to-nearest intrinsics in the
     # plain op order.
     assert torch.equal(got, bil._slice_plain(*args))
@@ -125,9 +127,9 @@ def test_normalize_slice_kernel_bitwise(depth_frames, name):
     depth = depth.contiguous()
     grid = bil.BilateralGrid.from_image(depth, SIGMA_SPACE, SIGMA_COLOR, 16).convolve()
     args = (grid.data_cm, depth, grid.color_min, SIGMA_SPACE, SIGMA_COLOR)
-    before = (bil.NORMALIZE_SLICE_LAUNCHES, bil.NORMALIZE_PASSES)
+    before, passes = _kernels.launches(), bil.NORMALIZE_PASSES
     got = bil._normalize_slice(*args)
-    assert (bil.NORMALIZE_SLICE_LAUNCHES, bil.NORMALIZE_PASSES) == (before[0] + 1, before[1])
+    assert _kernels.launches(before)["K3b"] == 1 and bil.NORMALIZE_PASSES == passes
     assert got.dtype == torch.int32
     assert torch.equal(got, bil._normalize_slice_plain(*args))
     assert torch.equal(got, grid.normalize().slice(depth))
@@ -204,9 +206,9 @@ def test_icp_step_kernel_gate_boundary(cuda_device, case):
             t["mask"][None].to(torch.uint8), t["intensity"][None],
             pack_geometry(t["target_points"], t["target_normals"], t["target_mask"])[None],
             t["intensity_map"][None].contiguous(), H, W, CameraIntrinsics(**INTRINSICS, width=W, height=H), params)
-    before = icp_fused.LAUNCHES
+    before = _kernels.launches()
     got = icp_fused.icp_step_fused(*args)
-    assert icp_fused.LAUNCHES == before + 1
+    assert _kernels.launches(before)["K1"] == 1
     ref = icp_fused.icp_step_plain(*args)
     assert float(got[0, 0, 7, 7]) == float(ref[0, 0, 7, 7]) == float(IMAGE_KEEPS[case])
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
@@ -251,9 +253,9 @@ def _search_args(grid, queries, band_width, anchor_min):
 def test_nn_banded_kernel_bitwise(cuda_device, n_db, n_q, band_width, payload):
     grid, queries = _grid_and_queries(cuda_device, n_db, n_q, 0.05, seed=n_db + band_width)
     args = _search_args(grid, queries, band_width, anchor_min=payload)
-    before = nn_banded.LAUNCHES
+    before = _kernels.launches()
     got = nn_banded.band_search(*args, payload)
-    assert nn_banded.LAUNCHES == before + 1
+    assert _kernels.launches(before)["K4"] == 1
     ref = nn_banded.band_search_plain(*args, payload)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert (got[2] is None) == (not payload)
@@ -375,9 +377,9 @@ def test_mesh_kernel_bitwise(cuda_device, name):
     pts, faces = _meshes()[name]
     ev = mesh.MeshNormals(faces, pts.shape[0], device=cuda_device)
     points = torch.from_numpy(pts).to(cuda_device)
-    before = mesh.LAUNCHES
+    before = _kernels.launches()
     got = ev(points)
-    assert mesh.LAUNCHES == before + 1
+    assert _kernels.launches(before)["K5"] == 1
     ref = mesh.vertex_normals_plain(points, ev.table, ev.counts)
     # Bitwise with the sign of zero, NaN at the same (isolated) vertices.
     assert _same_bits(got, ref)
@@ -447,9 +449,9 @@ def test_mesh_kernel_rejects_bad_inputs(cuda_device):
         mesh.vertex_normals(points, ev.table.cpu(), ev.counts)
     with pytest.raises(ValueError):
         mesh.vertex_normals(points, ev.table, ev.counts[:-1])
-    before = mesh.LAUNCHES
+    before = _kernels.launches()
     ev(points)
-    assert mesh.LAUNCHES == before + 1
+    assert _kernels.launches(before)["K5"] == 1
 
 
 def test_mesh_ptxas_report(cuda_device):
@@ -480,11 +482,12 @@ def test_batched_splat_and_slice_bitwise_against_single_frames(cuda_device):
     gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(cmin.tolist(), cmax.tolist()))
     assert gd > 128
     gh, gw = bil._grid_dims(*depths.shape[-2:], filt.sigma_space)
-    before = (bil.SPLAT_LAUNCHES, bil.SLICE_LAUNCHES)
+    before = _kernels.launches()
     grids = bil._splat(depths, cmin, (gh, gw, gd), filt.sigma_space, filt.sigma_color)
     norm = bil._normalize(bil._blur(grids, gd))
     sliced = bil._slice(norm, depths, cmin, filt.sigma_space, filt.sigma_color)
-    assert (bil.SPLAT_LAUNCHES, bil.SLICE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    launched = _kernels.launches(before)
+    assert (launched["K2"], launched["K3a"]) == (1, 1)
     for b in range(depths.shape[0]):
         one = bil._splat(depths[b], int(cmin[b]), (gh, gw, gd), filt.sigma_space, filt.sigma_color)
         assert torch.equal(one, grids[b])
@@ -503,9 +506,9 @@ def test_batched_normalize_slice_bitwise_against_single_frames(cuda_device):
     gd = max(bil.true_depth(lo, hi, filt.sigma_color) for lo, hi in zip(cmin.tolist(), cmax.tolist()))
     gh, gw = bil._grid_dims(*depths.shape[-2:], filt.sigma_space)
     grids = bil._blur(bil._splat(depths, cmin, (gh, gw, gd), filt.sigma_space, filt.sigma_color), gd)
-    before = bil.NORMALIZE_SLICE_LAUNCHES
+    before = _kernels.launches()
     got = bil._normalize_slice(grids, depths, cmin, filt.sigma_space, filt.sigma_color)
-    assert bil.NORMALIZE_SLICE_LAUNCHES == before + 1
+    assert _kernels.launches(before)["K3b"] == 1
     assert torch.equal(got, bil._normalize_slice_plain(grids, depths, cmin, filt.sigma_space, filt.sigma_color))
     for b in range(depths.shape[0]):
         one = bil._normalize_slice(grids[b].contiguous(), depths[b], int(cmin[b]), filt.sigma_space, filt.sigma_color)
@@ -595,13 +598,13 @@ def test_icp_step_kernel_rearms_across_batch_sizes(cuda_device):
         return icp_fused.icp_step_fused(rot[:b], trans[:b], *(t[:b] for t in packed[:5]), *packed[5:],
                                         targets.intrinsics, params)
 
-    before = icp_fused.LAUNCHES
+    before = _kernels.launches()
     first = step(64)
     for b in (64, 1, 3, 64):
         got = step(b)
         assert torch.equal(got, step(b)), b
         assert torch.equal(got, first[:b]), b
-    assert icp_fused.LAUNCHES == before + 9
+    assert _kernels.launches(before)["K1"] == 9
     torch.cuda.synchronize()
     assert not icp_fused._ARRIVALS[(rot.device, torch.cuda.current_stream().cuda_stream)].any()
 
@@ -658,9 +661,9 @@ def test_banded_kernel_matches_plain(pyramids, cuda_device, variant, level, hube
     params = MsIcpParams.default_tpu("pallas")[level].replace(huber_delta=huber)
     pose = Transform.exp(torch.tensor([0.02, -0.01, 0.006, 0.004, -0.008, 0.002], device=cuda_device))
     args = _banded_args(mod, tgt, src, pose, params)
-    before = mod.LAUNCHES
+    before = _kernels.launches()
     got = step(*args)
-    assert mod.LAUNCHES == before + 1
+    assert _kernels.launches(before)[{"v3": "K7", "v4": "K8"}[variant]] == 1
     ref = mod.icp_step_plain(*args, **({"emit_stats": True} if variant == "v3" else {}))
     for g, r in zip(got[:2], ref[:2]):
         g, r = g[0], r[0]
@@ -771,9 +774,9 @@ def test_source_centroids_kernel_bitwise(pyramids, cuda_device, level, edit):
     same places), one launch a call."""
     src = pyramids[1][level]
     sp = _source_pack(src, edit)
-    before = k3.CENTROIDS_LAUNCHES
+    before = _kernels.launches()
     got = k3.source_centroids_batched(sp, src.intrinsics)
-    assert k3.CENTROIDS_LAUNCHES == before + 1
+    assert _kernels.launches(before)["K9"] == 1
     ref = k3.source_centroids_plain(sp, src.intrinsics)
     cpu = k3.source_centroids_plain(sp.cpu(), src.intrinsics)
     for g, r, c in zip(got, ref, cpu):
@@ -808,9 +811,9 @@ def test_predict_bases_kernel_equals_plain(pyramids, cuda_device, level):
     clipped = set()
     for pose in _predict_poses(cuda_device, sp, src.intrinsics):
         rot, trans = pose.rotation[None].contiguous(), pose.translation[None].contiguous()
-        before = k3.PREDICT_LAUNCHES
+        before = _kernels.launches()
         got = k3.predict_bases_centroid_batched(rot, trans, centroids, src.intrinsics, hp)
-        assert k3.PREDICT_LAUNCHES == before + 1
+        assert _kernels.launches(before)["K10"] == 1
         ref = k3.predict_bases_centroid_plain(rot, trans, centroids, src.intrinsics, hp)
         assert all(g.dtype == torch.int32 and torch.equal(g, r) for g, r in zip(got, ref))
         clipped |= {int(v) for v in got[0][0, 1:-1]} & {0, max(hp - min(32, hp), 0)}
@@ -961,9 +964,9 @@ def test_gn_update_kernel_matches_plain(pyramids, real64, cuda_device, engine, s
         blocks = step(state.rot, state.trans)
         ref = _clone(state)
         gn.gn_update_plain(*blocks, w1, w2, ref)
-        before, best = gn.LAUNCHES, state.best_res.clone()
+        before, best = _kernels.launches(), state.best_res.clone()
         gn.gn_update(*blocks, w1, w2, state)
-        assert gn.LAUNCHES == before + 1
+        assert _kernels.launches(before)["K11"] == 1
         _assert_close_to_twin(state, ref)
         selected += int((state.best_res != best).sum())
     assert selected >= bsz  # the first iteration selects in every pair
@@ -1086,17 +1089,18 @@ def test_gn_update_launches_once_a_gn_iteration(pyramids, cuda_device):
     from align3d_torch.utils import profiling
 
     tgt, src = pyramids[0][2], pyramids[1][2]
-    for engine, mod in (("xla", icp_fused), ("pallas_v4", k4)):
+    for engine, step_kernel in (("xla", "K1"), ("pallas_v4", "K8")):
         params = (MsIcpParams.default() if engine == "xla" else MsIcpParams.default_tpu("pallas_v4"))[2]
         icp = image_icp.ImageIcp(params, tgt)
-        before, step_before = gn.LAUNCHES, mod.LAUNCHES
+        before = _kernels.launches()
         profiling.clear()
         with profiling.recording():
             icp.align(src)
         iters = sum(s.name == "gn.iter" for s in profiling.spans())
         profiling.clear()
         assert iters == params.max_iterations
-        assert gn.LAUNCHES - before == mod.LAUNCHES - step_before == iters, engine
+        launched = _kernels.launches(before)
+        assert launched["K11"] == launched[step_kernel] == iters, engine
 
 
 def test_gn_update_rejects_bad_inputs(cuda_device):
@@ -1154,7 +1158,7 @@ def pyramid_inputs(cuda_device):
     return out
 
 
-def _same_bits(a, b) -> bool:
+def _bitwise(a, b) -> bool:
     if a.dtype == torch.float32:
         return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
     return a.dtype == b.dtype and torch.equal(a, b)
@@ -1166,9 +1170,10 @@ def _pyramid_against_twin(args, levels: int):
     one launch a level. Returns the kernels' levels."""
     from align3d_torch.ops import pyramid as pyr
 
-    before = pyr.BASE_LAUNCHES + pyr.DOWN_LAUNCHES
+    before = _kernels.launches()
     got = pyr.build(*args)
-    assert pyr.BASE_LAUNCHES + pyr.DOWN_LAUNCHES == before + levels
+    launched = _kernels.launches(before)
+    assert launched["K12"] + launched["K13"] == levels
     ref = pyr.pyramid_plain(*args)
     assert len(got) == len(ref) == levels
     for k, (g, r) in enumerate(zip(got, ref)):
@@ -1176,7 +1181,7 @@ def _pyramid_against_twin(args, levels: int):
             a, b = getattr(g, field), getattr(r, field)
             assert (a is None) == (b is None), (k, field)
             if a is not None:
-                assert _same_bits(a, b), (k, field)
+                assert _bitwise(a, b), (k, field)
     return got
 
 
@@ -1240,7 +1245,7 @@ def test_pyramid_kernels_batch_bitwise_single(pyramid_inputs):
         one = pyr.build(True, True, 3, 1.0, camera, scales[i], colors[i], depths[i])
         for lb, lo in zip(batch, one):
             for field in pyr.Level._fields:
-                assert _same_bits(getattr(lb, field)[i], getattr(lo, field)), (i, field)
+                assert _bitwise(getattr(lb, field)[i], getattr(lo, field)), (i, field)
 
 
 def test_pyramid_launches_a_build(pyramid_inputs, cuda_device):
@@ -1250,12 +1255,14 @@ def test_pyramid_launches_a_build(pyramid_inputs, cuda_device):
     from align3d_torch.parallel.batch import build_pyramids_batched
 
     ds = SlamTbDataset.load(str(RGBD / "sample1"))
-    counts = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+    before = _kernels.launches()
     RangeImageBuilder(bilateral_filter=bil.BilateralFilter()).build(ds.get(2), cuda_device)
-    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 1, counts[1] + 2)
+    launched = _kernels.launches(before)
+    assert (launched["K12"], launched["K13"]) == (1, 2)
     colors, depths, scales, _, camera = pyramid_inputs["sample1"]
     build_pyramids_batched(camera, scales, colors, depths)
-    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 2, counts[1] + 4)
+    launched = _kernels.launches(before)
+    assert (launched["K12"], launched["K13"]) == (2, 4)
 
 
 def test_pyramid_kernels_reject_bad_inputs(pyramid_inputs):
@@ -1263,7 +1270,7 @@ def test_pyramid_kernels_reject_bad_inputs(pyramid_inputs):
 
     colors, depths, _, scale, camera = pyramid_inputs["sample1"]
     color, depth = colors[0], depths[0]
-    counts = (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES)
+    before = _kernels.launches()
     bad_base = [
         (depth.to(torch.int16), color),  # dtype
         (depth.to(torch.float32), color),
@@ -1284,7 +1291,8 @@ def test_pyramid_kernels_reject_bad_inputs(pyramid_inputs):
             pyr.pyramid_down(bad, 1.0, True)
     with pytest.raises(ValueError):
         pyr.pyramid_down(level, 9.0, True)  # more blur taps than K13 takes
-    assert (pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES) == (counts[0] + 1, counts[1])
+    launched = _kernels.launches(before)
+    assert (launched["K12"], launched["K13"]) == (1, 0)
 
 
 def test_pyramid_ptxas_report(cuda_device):
@@ -1305,9 +1313,9 @@ def test_fma_probe_against_twin(cuda_device):
     from align3d_torch.tools import roofline as rl
 
     x = torch.rand(132 * 256, device=cuda_device) + 0.5
-    before = rl.FMA_LAUNCHES
+    before = _kernels.launches()
     got = rl.fma_chains(x, 2)
-    assert rl.FMA_LAUNCHES == before + 1
+    assert _kernels.launches(before)["P1"] == 1
     # rtol 1e-5: fmaf rounds once where the twin's multiply and add round
     # twice, over chains of 64.
     torch.testing.assert_close(got, rl.fma_chains_plain(x, 2), rtol=1e-5, atol=0)
@@ -1394,11 +1402,11 @@ def test_viz_mesh_one_k5_launch_a_render(cuda_device):
     for device in (cuda_device, torch.device("cpu")):
         viewer = GeoViewer(640, 480, device=device)
         viewer.add(geom.points, faces=geom.faces)
-        before = mesh.LAUNCHES
+        before = _kernels.launches()
         renders[device.type] = [viewer.render_frame(0.3, 0.4), viewer.render_frame(0.3, 0.4)]
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert mesh.LAUNCHES - before == 2
+            assert _kernels.launches(before)["K5"] == 2
     card, cpu = renders["cuda"], renders["cpu"]
     assert _renders_equal(card[0], card[1]) and _renders_equal(card[0], cpu[0])
     assert torch.isfinite(card[0].depth).sum() > 10000
@@ -1455,9 +1463,9 @@ def test_sphere_mean_kernel_bitwise_numpy(cuda_device, n):
     from align3d_torch.viz import sphere
 
     pts = _sphere_points(n)
-    before = sphere.MEAN_LAUNCHES
+    before = _kernels.launches()
     got = sphere.numpy_means(torch.from_numpy(pts).to(cuda_device), [n]).cpu().numpy()[0]
-    assert sphere.MEAN_LAUNCHES == before + 1
+    assert _kernels.launches(before)["K6"] == 1
     want = pts.mean(axis=0)
     assert got.dtype == want.dtype and np.array_equal(got.view(np.int32), want.view(np.int32))
     fit = sphere.Sphere3D.from_points(torch.from_numpy(pts).to(cuda_device))
@@ -1471,10 +1479,10 @@ def test_sphere_fit_many_is_one_launch(cuda_device):
     from align3d_torch.viz import sphere
 
     sets = [_sphere_points(n) for n in (1, 3, 1025, 100_003, 262_144)]
-    before = sphere.MEAN_LAUNCHES
+    before = _kernels.launches()
     fits = sphere.Sphere3D.fit_many([torch.from_numpy(p).to(cuda_device) for p in sets]
                                     + [torch.zeros((0, 3), device=cuda_device)])
-    assert sphere.MEAN_LAUNCHES == before + 1 and fits[-1].is_empty
+    assert _kernels.launches(before)["K6"] == 1 and fits[-1].is_empty
     for fit, pts in zip(fits, sets):
         ref = sphere.Sphere3D.from_points(pts)
         assert np.array_equal(fit.center.view(np.int32), ref.center.view(np.int32)) and fit.radius == ref.radius

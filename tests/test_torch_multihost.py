@@ -13,7 +13,6 @@ the CPU over gloo: the counterparts of ``tests/test_multihost.py``.
   own bounds, 1e-4 and 5e-4, as the JAX drill's).
 """
 
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +20,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_cpu
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from _torch_dist_cases import camera, host_local_paths, poses, small_params, spawn, synthetic_sequence
 
 from align3d_tpu.parallel import multihost as jmultihost
@@ -62,12 +63,7 @@ def test_host_local_batch_two_processes(tmp_path):
     np.savez(inputs, camera=np.asarray(cam, np.float64), colors=colors, depths=depths)
     spawn(host_local_paths, 2, tmp_path, str(inputs), str(tmp_path))
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # the ranks' thread count: the CPU's sums split by it
-    try:
-        ref = poses(odometry_step(camera(cam), 0.001, colors, depths, small_params(), 2, device="cpu").camera_to_world)
-    finally:
-        torch.set_num_threads(threads)
+    ref = poses(odometry_step(camera(cam), 0.001, colors, depths, small_params(), 2, device="cpu").camera_to_world)
     for r in ranks:
         assert r["global_shape"].tolist() == [8, 48, 64, 3] and r["local_shape"].tolist() == [4, 48, 64, 3]
         assert str(r["placements"]) == "(Shard(dim=0),)"
@@ -77,7 +73,7 @@ def test_host_local_batch_two_processes(tmp_path):
 
 
 def drill(*args: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = _torch_cpu.env(PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-m", "align3d_torch.tools.run_multiprocess", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=DRILL_TIMEOUT_S)
 

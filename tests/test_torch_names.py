@@ -9,6 +9,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 JAX, PORT = ROOT / "align3d_tpu", ROOT / "align3d_torch"

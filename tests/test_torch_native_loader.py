@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from PIL import Image
 
 from align3d_tpu.io.datasets import core as jcore

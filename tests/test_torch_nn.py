@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.ops import nn_banded as jax_nn
 from align3d_tpu.ops import voxel_hash as jax_vh

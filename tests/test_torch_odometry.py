@@ -11,6 +11,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_cpu
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.odometry import run_odometry as jax_run_odometry
 from align3d_tpu.ops.bilateral import BilateralFilter as JaxBilateralFilter
@@ -62,7 +64,7 @@ def test_odometry_matches_jax(port_result, sample1_dataset):
         device="cpu",
     )
     angle, trans = _pose_diff(ref_poses, port_result.trajectory.camera_to_world)
-    # Each pose within 1e-3 rad / 1e-3 m (measured max 1.0e-6 rad, 1.9e-6 m).
+    # Each pose within 1e-3 rad / 1e-3 m (measured max 1.1e-6 rad, 2.0e-6 m).
     assert angle.max() <= 1e-3 and trans.max() <= 1e-3
     _assert_bounds(port_result.metrics)
     assert len(port_result.residuals) == FRAMES - 1
@@ -72,8 +74,8 @@ def test_odometry_prefix_matches_golden(port_result):
     golden = Trajectory.from_tum(GOLDEN.read_text())
     assert len(golden) == 10
     angle, trans = _pose_diff(golden.slice(0, FRAMES).camera_to_world, port_result.trajectory.camera_to_world)
-    # The 3-frame bound, 1e-3 rad / 1e-3 m (measured max 9.8e-7 rad,
-    # 1.9e-6 m; the golden's text keeps 7 decimals).
+    # The 3-frame bound, 1e-3 rad / 1e-3 m (measured max 1.1e-6 rad,
+    # 2.0e-6 m; the golden's text keeps 7 decimals).
     assert angle.max() <= 1e-3 and trans.max() <= 1e-3
 
 
@@ -175,7 +177,8 @@ def test_port_never_imports_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('LOADED', bad, len(r.trajectory), tuple(vn.shape), len(t), len(nodes.translation), tuple(lms.shape))\n"
     )
-    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True, timeout=300,
+                          env=_torch_cpu.env())
     assert proc.returncode == 0, proc.stderr
     assert f"LOADED [] {FRAMES} (480, 3) 3 {FRAMES} (4, 3)" in proc.stdout
 

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 from test_pose_graph import _dense_propose, _noisy_ring
 
 from align3d_tpu.parallel import pose_graph as jpg

@@ -7,6 +7,7 @@ import time
 
 import jax.numpy as jnp
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_tpu.utils.profiling import StageTimer as JaxStageTimer
 

@@ -17,9 +17,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from _torch_pyramid_cases import level2_blind_depth, window_rows
 
+from align3d_torch import _kernels
 from align3d_torch.image import _blur_offsets_weights, py_scale_down, rgb_to_luma_u8
 from align3d_torch.io.datasets import SlamTbDataset
 from align3d_torch.ops import pyramid as pyr
@@ -29,16 +31,6 @@ from align3d_torch.range_image import RangeImage, build_pyramid_impl
 
 RGBD = Path(__file__).resolve().parent / "data" / "rgbd"
 TILE_W, TILE_H = 32, 8  # csrc/pyramid.cu's kTileW, kTileH
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the twin is hundreds of small ops, which crawl on
-    many threads while the suite's other workers hold the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -51,10 +43,6 @@ def frames():
     depth = np.stack([f.image.depth[::4, ::4].astype(np.int32) for f in got])
     camera = got[0].camera.scale(0.25)
     return torch.from_numpy(np.ascontiguousarray(color)), torch.from_numpy(np.ascontiguousarray(depth)), camera
-
-
-def _counts():
-    return pyr.BASE_LAUNCHES, pyr.DOWN_LAUNCHES
 
 
 def _assert_same(a, b):
@@ -72,9 +60,9 @@ def test_build_on_cpu_is_the_plain_twin(frames, levels, flags):
     color, depth, camera = frames
     with_normals, with_intensity = flags
     args = (with_normals, with_intensity, levels, 1.0, camera, 0.001, color[0], depth[0])
-    before = _counts()
+    before = _kernels.launches()
     got = build_pyramid_impl(*args)
-    assert _counts() == before
+    assert _kernels.launches() == before
     ref = pyr.pyramid_plain(*args)
     assert len(got) == len(ref) == levels
     intr = camera
@@ -103,13 +91,13 @@ def test_plain_twin_is_the_range_image_chain(frames):
 
 def test_kernel_wrappers_refuse_cpu_tensors(frames):
     color, depth, camera = frames
-    before = _counts()
+    before = _kernels.launches()
     with pytest.raises(ValueError):
         pyr.pyramid_base(depth, color, 0.001, camera, True, True)
     level = pyr.pyramid_plain(True, True, 1, 1.0, camera, 0.001, color, depth)[0]
     with pytest.raises(ValueError):
         pyr.pyramid_down(level, 1.0, True)
-    assert _counts() == before
+    assert _kernels.launches() == before
 
 
 def _k13_colour(colors: np.ndarray, sigma: float) -> np.ndarray:

@@ -13,7 +13,9 @@ to the twins on the card (test_torch_kernels_cuda.py, chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
+from align3d_torch import _kernels
 from align3d_torch.tools import roofline as rl
 
 
@@ -56,9 +58,9 @@ def test_fma_twin_matches_the_tpu_kernel_body():
     # transcription does (the CUDA kernel's fmaf rounds once; it is held to
     # the twin at a relative tolerance on the card).
     np.testing.assert_array_equal(got, ref)
-    launches = rl.FMA_LAUNCHES
+    launches = _kernels.launches()
     assert torch.equal(rl.fma_chains(torch.from_numpy(x.reshape(-1)), 3), torch.from_numpy(ref.reshape(-1)))
-    assert rl.FMA_LAUNCHES == launches  # the CPU takes the twin
+    assert _kernels.launches() == launches  # the CPU takes the twin
     # The TPU tool's flop count: rows * 128 * u * ilp * 2 * steps.
     assert rl.fma_flops(16 * 128, 3) == 16 * 128 * 64 * 4 * 2 * 3
 

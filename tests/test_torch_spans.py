@@ -14,6 +14,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 from align3d_torch import MultiscaleAlign, RangeImageBuilder
 from align3d_torch.camera import CameraIntrinsics

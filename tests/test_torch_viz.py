@@ -28,6 +28,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from _torch_cpu import one_thread  # noqa: F401  (the module's one-thread fixture)
 
 import jax.numpy as jnp
 from align3d_tpu import cli as jax_cli
