@@ -232,6 +232,13 @@ def launch(kid: str, *args, entry: str | None = None, library: ctypes.CDLL | Non
         _counts[kid] += 1
 
 
+def count(kid: str, n: int) -> None:
+    """Count ``n`` launches of kernel ``kid`` made without :func:`launch`:
+    a CUDA graph's replay of the launches captured in it. A capture takes
+    its launches back (``n`` < 0): captured, they do not run."""
+    _counts[kid] += n
+
+
 def launches(since: dict[str, int] | None = None) -> dict[str, int]:
     """The launches of each kernel of :data:`KERNELS` in this process so
     far (a copy), or since the snapshot ``since`` that an earlier call

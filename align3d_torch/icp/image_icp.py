@@ -18,6 +18,12 @@ Three engines, picked by ``IcpParams.engine`` as in the JAX package
   chunk and 128-column group) and runs one kernel launch over all B pairs;
   the loop is the exact engine's.
 
+On the card a level's whole align (its prepack too, where the caller hands
+over unpacked levels) is one CUDA graph, captured at the level's first call
+and replayed after (:mod:`align3d_torch.icp.level_graph`): one launch a
+level, the same kernels, arguments and bits as the eager loop. On the CPU
+the loop runs eagerly.
+
 Reference semantics kept exactly (``src/icp/image_icp.rs``), as in the JAX
 package:
 
@@ -38,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from align3d_torch.camera import CameraIntrinsics
+from align3d_torch.icp import level_graph
 from align3d_torch.icp.params import IcpParams
 from align3d_torch.ops import icp_fused
 from align3d_torch.ops import icp_pallas_v3 as k3
@@ -102,6 +109,28 @@ def _gn_loop(step, initial_rotation, initial_translation, params: IcpParams):
     return state.best_rot, state.best_trans, state.best_res
 
 
+def _level(fn, tensors: tuple, *consts):
+    """One level's align, ``fn(*tensors, *consts)``: eager on the CPU; on
+    the card through the level's CUDA graph (:mod:`level_graph`), keyed by
+    ``fn``, the tensors' shapes and the constants."""
+    if tensors[0].device.type == "cuda":
+        return level_graph.run(fn, tensors, consts)
+    return fn(*tensors, *consts)
+
+
+def _exact_loop(initial_rotation, initial_translation, points, mask, intensity, geo, intensity_map, h: int, w: int,
+                intrinsics: CameraIntrinsics, params: IcpParams):
+    """The exact engine's GN loop on prepacked pairs, eager: one K1 and one
+    K11 an iteration on the card."""
+
+    def step(rot, trans):
+        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics,
+                                       params)
+        return aug[:, 0], aug[:, 1]
+
+    return _gn_loop(step, initial_rotation, initial_translation, params)
+
+
 def align_impl_batched(
     initial_rotation: torch.Tensor,  # (B, 3, 3)
     initial_translation: torch.Tensor,  # (B, 3)
@@ -112,14 +141,8 @@ def align_impl_batched(
     """GN loop of B pairs on prepacked inputs, exact engine; returns
     (best_R, best_t, best_residual), (B, 3, 3), (B, 3), (B,), on the inputs'
     device."""
-    points, mask, intensity, geo, intensity_map, h, w = packed
-
-    def step(rot, trans):
-        aug = icp_fused.icp_step_fused(rot, trans, points, mask, intensity, geo, intensity_map, h, w, intrinsics,
-                                       params)
-        return aug[:, 0], aug[:, 1]
-
-    return _gn_loop(step, initial_rotation, initial_translation, params)
+    *tensors, h, w = packed
+    return _level(_exact_loop, (initial_rotation, initial_translation, *tensors), h, w, intrinsics, params)
 
 
 def _prepack_banded(pack_target, source_points, source_mask, source_intensity, target_points, target_mask,
@@ -150,9 +173,14 @@ def prepack_v4_batched(source_points, source_mask, source_intensity, target_poin
                            target_mask, target_normals, target_intensity_map, intrinsics)
 
 
-def _banded_packed(step_fn, initial_rotation, initial_translation, sp, tp, centroids, intrinsics, h, w, params):
+def _banded_loop(step_fn, initial_rotation, initial_translation, sp, tp, pbar, rowbar, colbar, cnt, h: int, w: int,
+                 intrinsics: CameraIntrinsics, params: IcpParams):
+    """A banded engine's GN loop on prepacked pairs, eager: per iteration
+    the bands predicted from the current poses (K10), ``step_fn`` (K7 or
+    K8) and K11."""
     hp = sp.shape[1] * k3.CHUNK
     pt = k3.params_to_tuple(params)
+    centroids = (pbar, rowbar, colbar, cnt)
 
     def step(rot, trans):
         cb, dyb, dxb = k3.predict_bases_centroid_batched(rot, trans, centroids, intrinsics, hp)
@@ -161,46 +189,71 @@ def _banded_packed(step_fn, initial_rotation, initial_translation, sp, tp, centr
     return _gn_loop(step, initial_rotation, initial_translation, params)
 
 
+def _v3_loop(*args):
+    """The ``"pallas"`` engine's loop: K7 with no stats."""
+    return _banded_loop(lambda *a: k3.icp_step_pallas_batched(*a, emit_stats=False), *args)
+
+
+def _v4_loop(*args):
+    """The ``"pallas_v4"`` engine's loop: K8."""
+    return _banded_loop(k4.icp_step_pallas_batched, *args)
+
+
 def align_impl_pallas_v3_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
                                         intrinsics: CameraIntrinsics, h: int, w: int, params: IcpParams):
     """GN loop of the ``"pallas"`` engine over B prepacked pairs: per
     iteration the bands predicted from the current poses, one launch of K7
     (no stats), the solve and the update. Returns (best_R, best_t,
     best_residual)."""
-
-    def step_fn(*args):
-        return k3.icp_step_pallas_batched(*args, emit_stats=False)
-
-    return _banded_packed(step_fn, initial_rotation, initial_translation, sp, tp, centroids, intrinsics, h, w,
-                          params)
+    return _level(_v3_loop, (initial_rotation, initial_translation, sp, tp, *centroids), h, w, intrinsics, params)
 
 
 def align_impl_pallas_v4_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
                                         intrinsics: CameraIntrinsics, h: int, w: int, params: IcpParams):
     """:func:`align_impl_pallas_v3_batched_packed` with K8 (the ``"pallas_v4"``
     engine; ``bench.py``'s timed region)."""
-    return _banded_packed(k4.icp_step_pallas_batched, initial_rotation, initial_translation, sp, tp, centroids,
-                          intrinsics, h, w, params)
+    return _level(_v4_loop, (initial_rotation, initial_translation, sp, tp, *centroids), h, w, intrinsics, params)
+
+
+def _exact_eager(initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
+                 target_mask, target_normals, target_intensity_map, intrinsics: CameraIntrinsics, params: IcpParams):
+    """Batched exact align, eager: :func:`prepack_batched`, then the GN loop."""
+    *packed, h, w = prepack_batched(source_points, source_mask, source_intensity, target_points, target_mask,
+                                    target_normals, target_intensity_map)
+    return _exact_loop(initial_rotation, initial_translation, *packed, h, w, intrinsics, params)
+
+
+def _banded_eager(prepack, loop):
+    """A banded engine's batched align, eager: ``prepack``, then ``loop``."""
+
+    def eager(initial_rotation, initial_translation, *level_and_rest):
+        *level, intrinsics, params = level_and_rest
+        sp, tp, centroids, h, w = prepack(*level, intrinsics)
+        return loop(initial_rotation, initial_translation, sp, tp, *centroids, h, w, intrinsics, params)
+
+    return eager
+
+
+_v3_eager = _banded_eager(prepack_v3_batched, _v3_loop)
+_v4_eager = _banded_eager(prepack_v4_batched, _v4_loop)
 
 
 def align_impl_pallas_v3_batched(initial_rotation, initial_translation, source_points, source_mask,
                                  source_intensity, target_points, target_mask, target_normals, target_intensity_map,
                                  intrinsics: CameraIntrinsics, params: IcpParams):
-    """Batched ``"pallas"`` align: :func:`prepack_v3_batched`, then the GN loop."""
-    sp, tp, centroids, h, w = prepack_v3_batched(source_points, source_mask, source_intensity, target_points,
-                                                 target_mask, target_normals, target_intensity_map, intrinsics)
-    return align_impl_pallas_v3_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
-                                               intrinsics, h, w, params)
+    """Batched ``"pallas"`` align: :func:`prepack_v3_batched`, then the GN
+    loop (on the card both in the level's graph)."""
+    return _level(_v3_eager, (initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                              target_points, target_mask, target_normals, target_intensity_map), intrinsics, params)
 
 
 def align_impl_pallas_v4_batched(initial_rotation, initial_translation, source_points, source_mask,
                                  source_intensity, target_points, target_mask, target_normals, target_intensity_map,
                                  intrinsics: CameraIntrinsics, params: IcpParams):
-    """Batched ``"pallas_v4"`` align: :func:`prepack_v4_batched`, then the GN loop."""
-    sp, tp, centroids, h, w = prepack_v4_batched(source_points, source_mask, source_intensity, target_points,
-                                                 target_mask, target_normals, target_intensity_map, intrinsics)
-    return align_impl_pallas_v4_batched_packed(initial_rotation, initial_translation, sp, tp, centroids,
-                                               intrinsics, h, w, params)
+    """Batched ``"pallas_v4"`` align: :func:`prepack_v4_batched`, then the GN
+    loop (on the card both in the level's graph)."""
+    return _level(_v4_eager, (initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                              target_points, target_mask, target_normals, target_intensity_map), intrinsics, params)
 
 
 def _single(batched):
@@ -232,12 +285,12 @@ def align_impl_pallas_v4(initial_rotation, initial_translation, source_points, s
 
 
 def _exact_batched(initial_rotation, initial_translation, source_points, source_mask, source_intensity,
-                             target_points, target_mask, target_normals, target_intensity_map,
-                             intrinsics: CameraIntrinsics, params: IcpParams):
-    """Batched exact align: :func:`prepack_batched`, then the GN loop."""
-    packed = prepack_batched(source_points, source_mask, source_intensity, target_points, target_mask,
-                             target_normals, target_intensity_map)
-    return align_impl_batched(initial_rotation, initial_translation, packed, intrinsics, params)
+                   target_points, target_mask, target_normals, target_intensity_map, intrinsics: CameraIntrinsics,
+                   params: IcpParams):
+    """Batched exact align: :func:`prepack_batched`, then the GN loop (on
+    the card both in the level's graph)."""
+    return _level(_exact_eager, (initial_rotation, initial_translation, source_points, source_mask, source_intensity,
+                                 target_points, target_mask, target_normals, target_intensity_map), intrinsics, params)
 
 
 def align_impl(initial_rotation, initial_translation, source_points, source_mask, source_intensity, target_points,
@@ -252,6 +305,8 @@ def align_impl(initial_rotation, initial_translation, source_points, source_mask
 _ENGINES = {"xla": align_impl, "pallas": align_impl_pallas_v3, "pallas_v4": align_impl_pallas_v4}
 _BATCHED = {"xla": _exact_batched, "pallas": align_impl_pallas_v3_batched,
             "pallas_v4": align_impl_pallas_v4_batched}
+#: ``_BATCHED``'s aligns, never through a CUDA graph (the tests' eager loop on the card).
+_EAGER = {"xla": _exact_eager, "pallas": _v3_eager, "pallas_v4": _v4_eager}
 
 
 def _engine(table: dict, params: IcpParams):

@@ -21,6 +21,7 @@ library reduction or GEMM would pick its own order and FMA contraction.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -43,7 +44,8 @@ _PARTIALS = 58  # 2 systems x (21 H + 6 g + sum w r^2 + sum w)
 # Per (device, stream), the kernel's int32 arrival counter of each pair:
 # zeros, allocated once and re-armed to zero by every launch. Launches on one
 # stream run in order, so they can share their stream's counters; each stream
-# has its own, so launches on two streams never mix their counts.
+# has its own, so launches on two streams never mix their counts. A CUDA
+# graph's captured launches have their own too (:func:`own_arrivals`).
 _ARRIVALS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -53,6 +55,23 @@ def _arrivals(device: torch.device, stream: int, pairs: int) -> torch.Tensor:
         counters = torch.zeros(max(pairs, 64), dtype=torch.int32, device=device)
         _ARRIVALS[(device, stream)] = counters
     return counters
+
+
+@contextlib.contextmanager
+def own_arrivals(device: torch.device, stream: int, counters: torch.Tensor):
+    """Launches on ``stream`` inside the block take ``counters`` (zeros,
+    one a pair at least): a CUDA graph captured there keeps counters of its
+    own, which no launch outside it shares."""
+    key = (device, stream)
+    kept = _ARRIVALS.get(key)
+    _ARRIVALS[key] = counters
+    try:
+        yield
+    finally:
+        if kept is None:
+            del _ARRIVALS[key]
+        else:
+            _ARRIVALS[key] = kept
 
 
 def _f32(x: float) -> float:

@@ -765,9 +765,9 @@ def band_prediction(device) -> dict:
         try:
             packed = ii.prepack_v4_batched(*flat, intr)
 
-            def loop():
-                return ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], intr,
-                                                              *packed[3:], params)
+            def loop():  # eager: a graph's replay would not call the functions patched in
+                return ii._v4_loop(ident.rotation, ident.translation, *packed[:2], *packed[2], *packed[3:], intr,
+                                   params)
 
             if label not in aligns:
                 acts = _activities(loop, names)
@@ -855,14 +855,14 @@ def gn_update(device) -> dict:
         if engine == "k1":
             packed = ii.prepack_batched(*part)
 
-            def loop():
-                return ii.align_impl_batched(ident.rotation, ident.translation, packed, intr, params)
+            def loop():  # eager: a graph's replay would not call the gn_update patched in
+                return ii._exact_loop(ident.rotation, ident.translation, *packed, intr, params)
         else:
             packed = ii.prepack_v4_batched(*part, intr)
 
             def loop():
-                return ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], intr,
-                                                              *packed[3:], params)
+                return ii._v4_loop(ident.rotation, ident.translation, *packed[:2], *packed[2], *packed[3:], intr,
+                                   params)
         rows = aligns[f"{engine}_batch{b}"] = {}
         for label in ("kernel", "twin", "twin", "kernel"):  # the host's drift falls on both alike
             ii.gn_update = gn.gn_update_plain if label == "twin" else gn.gn_update

@@ -15,8 +15,12 @@ lines:
   off, recording on (:func:`align3d_torch.utils.profiling.recording`), and
   off with a synchronise after the build and after the align (as the
   benchmark's harness ends its spans): ms a frame of each, and, from the
-  recorded blocks, the mean ``gn.iter`` length and the mean of each span a
-  frame. Three phases: before any profiler has run, after a CUDA-only
+  recorded blocks, the mean of each span a frame and the GN loop's host
+  cost (:func:`gn_cost`): the mean ``gn.iter`` length where the loop ran
+  eagerly, and where a level's CUDA graph replayed (``icp/level_graph.py``)
+  the mean ``gn.replay`` length at each level, a replay and a GN
+  iteration, with the share of the levels that replayed rather than
+  captured. Three phases: before any profiler has run, after a CUDA-only
   ``torch.profiler`` (the benchmark's traced slice) over 4 frames and 2
   steps, and after the :func:`~align3d_torch.utils.profiling.trace` below;
 * ``idle``: the device's idle time over the CUDA-only profile and over the
@@ -25,10 +29,12 @@ lines:
   (``build`` and ``icp.align``: the tracker's frames; ``batch.step``);
 * ``launches``: of the trace's K1 (``icp_step_kernel``) and K8
   (``icp_banded_kernel``) launches, how many the runtime's launch call of
-  lies inside a ``gn.step`` span, against the ``gn.step`` spans and the
-  launches of each of the port's kernels (``_kernels.launches()``: K1's,
-  K8's and K11's, one a ``gn.iter``; K12's and K13's, the pyramid's, one a
-  level of each build).
+  lies inside a ``gn.step`` span (none where a level's graph replays: its
+  kernels come from one ``cudaGraphLaunch``, counted as ``graph_launches``),
+  against the ``gn.step`` spans and the launches of each of the port's
+  kernels (``_kernels.launches()``: K1's, K8's and K11's, one a GN
+  iteration, replays included; K12's and K13's, the pyramid's, one a level
+  of each build) and the graphs' captures and replays.
 
 ``--ranks N`` (N cards) runs instead the frame-sharded step on N processes,
 one a card, as a multi-card deployment does: each hands its own 64-frame
@@ -61,6 +67,7 @@ from align3d_torch import MultiscaleAlign, RangeImageBuilder
 from align3d_torch.icp.params import MsIcpParams
 from align3d_torch.image import RgbdFrame, RgbdImage
 from align3d_torch import _kernels
+from align3d_torch.icp import level_graph
 from align3d_torch.ops.bilateral import BilateralFilter
 from align3d_torch.parallel.batch import odometry_step
 from align3d_torch.tools import series
@@ -154,9 +161,11 @@ class Tracker:
         self.prev = pyramid
 
 
+BATCH_PARAMS = MsIcpParams.default_tpu("pallas_v4")
+
+
 def batch_step(s: series.Series, device) -> None:
-    traj = odometry_step(s.camera, s.depth_scales, s.colors, s.depths, MsIcpParams.default_tpu("pallas_v4"), 3,
-                         BilateralFilter(), device)
+    traj = odometry_step(s.camera, s.depth_scales, s.colors, s.depths, BATCH_PARAMS, 3, BilateralFilter(), device)
     traj.camera_to_world.rotation.cpu()
 
 
@@ -168,14 +177,41 @@ def span_means(spans: list, units: int) -> dict:
     return dict(sorted(out.items()))
 
 
+def gn_cost(blocks: list[list], params: MsIcpParams, graphs: dict) -> dict:
+    """The GN loop's host cost in the recorded ``blocks`` (each one block's
+    spans, whose parents index it): the mean ``gn.iter`` length (us) of the
+    eager loop; the mean ``gn.replay`` length at each level, a replay and a
+    GN iteration (``params``' iterations there); and of ``graphs`` (the
+    captures and replays of :func:`level_graph.counts` over the blocks) the
+    share that replayed."""
+    iters, replays = [], defaultdict(list)
+    for spans in blocks:
+        for sp in spans:
+            if sp.name == "gn.iter":
+                iters.append((sp.end - sp.start) / 1e3)
+            elif sp.name == "gn.replay" and sp.parent >= 0:
+                replays[spans[sp.parent].level].append((sp.end - sp.start) / 1e3)
+    out = {}
+    if iters:
+        out["gn_iter_us"] = {"mean": statistics.fmean(iters), "median": statistics.median(iters)}
+    if replays:
+        out["gn_replay_us"] = {lv: {"replays": len(v), "mean": statistics.fmean(v),
+                                    "per_iteration": statistics.fmean(v) / params[lv].max_iterations}
+                               for lv, v in sorted(replays.items())}
+    total = graphs["captures"] + graphs["replays"]
+    out["graph_hit_share"] = graphs["replays"] / total if total else None
+    return out
+
+
 def phase(name: str, tracker: Tracker, s: series.Series, device) -> dict:
     """Blocks of tracker frames off / on / synced and of batch steps off /
     on, the order turning each round."""
     out = {"phase": name}
-    units = {"tracker": (lambda synced: tracker.frame(synced), BLOCK, ["off", "on", "synced"]),
-             "batch": (lambda synced: batch_step(s, device), STEP_BLOCK, ["off", "on"])}
-    for part, (unit, block, kinds) in units.items():
-        ms, spans, iters = defaultdict(list), [], []
+    units = {"tracker": (lambda synced: tracker.frame(synced), BLOCK, ["off", "on", "synced"], tracker.params),
+             "batch": (lambda synced: batch_step(s, device), STEP_BLOCK, ["off", "on"], BATCH_PARAMS)}
+    for part, (unit, block, kinds, params) in units.items():
+        ms, spans, blocks = defaultdict(list), [], []
+        graphs0 = level_graph.counts()
         for r in range(ROUNDS):
             for kind in kinds[r % len(kinds):] + kinds[:r % len(kinds)]:
                 profiling.clear()
@@ -185,11 +221,11 @@ def phase(name: str, tracker: Tracker, s: series.Series, device) -> dict:
                         unit(kind == "synced")
                 ms[kind].append((time.perf_counter() - t0) * 1e3 / block)
                 if kind == "on":
-                    spans += profiling.spans()
-        iters = [(sp.end - sp.start) / 1e3 for sp in spans if sp.name == "gn.iter"]
+                    blocks.append(list(profiling.spans()))
+                    spans += blocks[-1]
+        graphs = {k: n - graphs0[k] for k, n in level_graph.counts().items()}
         out[part] = {"ms_per_unit": dict(ms), "median_ms_per_unit": {k: statistics.median(v) for k, v in ms.items()},
-                     "gn_iter_us": {"mean": statistics.fmean(iters), "median": statistics.median(iters)},
-                     "span_ms_per_unit": span_means(spans, block * ROUNDS)}
+                     **gn_cost(blocks, params, graphs), "span_ms_per_unit": span_means(spans, block * ROUNDS)}
     profiling.clear()
     return out
 
@@ -241,16 +277,22 @@ def chrome_device(events: list, base: int) -> tuple[list, dict]:
 
 def launches_in_steps(events: list, base: int, kernels: dict, spans: list) -> dict:
     """Each K1/K8 kernel's runtime launch call, found by correlation id,
-    and whether it lies inside a ``gn.step`` span."""
+    and whether it lies inside a ``gn.step`` span. A graph's kernels all
+    carry its ``cudaGraphLaunch``'s id: they are counted as kernels, and
+    the graph launch apart."""
     steps = sorted((s.start, s.end) for s in spans if s.name == "gn.step")
     step_starts = [a for a, _ in steps]
     found = {k: {"kernels": 0, "launch_calls": 0, "inside_gn_step": 0} for k in KERNELS}
-    for name in kernels.values():
-        for k in KERNELS:
-            if k in name:
-                found[k]["kernels"] += 1
+    found["graph_launches"] = 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for k in KERNELS:
+                found[k]["kernels"] += k in e["name"]
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        if e.get("name", "").startswith("cudaGraphLaunch"):
+            found["graph_launches"] += 1
             continue
         name = kernels.get(e.get("args", {}).get("correlation"))
         key = next((k for k in KERNELS if name and k in name), None)
@@ -390,20 +432,21 @@ def main(argv=None) -> int:
     print(json.dumps(phase("after a CUDA-only profile", tracker, s, device)), flush=True)
 
     if not args.control:
-        counts0 = _kernels.launches()
+        counts0, graphs0 = _kernels.launches(), level_graph.counts()
         with tempfile.TemporaryDirectory(prefix="spans_trace_") as log_dir:
             with profiling.trace(log_dir):
                 spans = profiled_units(tracker, s, device)
             with open(os.path.join(log_dir, "trace.json")) as f:
                 data = json.load(f)
         counts = _kernels.launches(counts0)
+        graphs = {k: n - graphs0[k] for k, n in level_graph.counts().items()}
         base, events = int(data.get("baseTimeNanoseconds", 0)), data["traceEvents"]
         intervals, kernels = chrome_device(events, base)
         for part, roots in PARTS.items():
             print(json.dumps({"idle": "trace (CPU + CUDA)", "part": part, **idle_by_span(intervals, spans, roots)}),
                   flush=True)
         print(json.dumps({"launches": launches_in_steps(events, base, kernels, spans),
-                          "counters": counts, "trace_events": len(events),
+                          "counters": counts, "graphs": graphs, "trace_events": len(events),
                           "span_events": sum(1 for e in events if e.get("tid") == profiling.TRACK)}), flush=True)
         del data, events
     else:

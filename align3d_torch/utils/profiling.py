@@ -21,10 +21,15 @@ there):
   ``multiscale_align_batched``; a root, or under the stage ``align``;
 * ``icp.level`` (``level``, ``pairs``), under ``icp.align``: one level; its
   self time is the flatten and the prepack;
-* ``gn.iter``, under ``icp.level``: one iteration of ``_gn_loop``; its
-  self time is the best-residual select. Under it ``gn.step`` (``step(rot,
-  trans)``: K1, or K10 + K8 / K7) and ``gn.solve`` (the merge, the
-  residual, the float64 solve and the SE(3) update);
+* ``gn.iter``, under ``icp.level``: one iteration of the eager
+  ``_gn_loop`` (on the CPU, and a level's first call on the card). Under it
+  ``gn.step`` (``step(rot, trans)``: K1, or K10 + K8 / K7) and ``gn.solve``
+  (K11: the merge, the residual, the float64 solve, the SE(3) update and
+  the best-pose select);
+* ``gn.replay``, under ``icp.level``: on the card, one replay of a level's
+  CUDA graph (``icp/level_graph.py``: its inputs copied in, the graph
+  launched, its result copied out), in place of that level's ``gn.iter``
+  spans (a capture records none: :func:`paused`);
 * ``icp.level_wait``, under ``icp.level``: ``ImageIcp.align``'s read of
   the residual, the tracker's one wait for the device a level;
 * ``batch.step`` (``pairs``), root: ``parallel/batch.py::odometry_step``
@@ -89,6 +94,7 @@ class Span:
 
 
 _recording = 0  # open recording() blocks
+_paused = 0  # open paused() blocks
 _spans: list[Span] = []
 _open: list[int] = []  # indices of the open spans, innermost last
 _dropped = 0
@@ -105,8 +111,22 @@ def recording() -> Iterator[None]:
         _recording -= 1
 
 
+@contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """Record no span inside the block, recording or not: a CUDA graph's
+    capture, whose launches run later, in its replays."""
+    global _paused
+    _paused += 1
+    try:
+        yield
+    finally:
+        _paused -= 1
+
+
 def _begin(name: str, level: int | None, pairs: int | None) -> int:
     global _dropped
+    if _paused:
+        return -1
     if len(_spans) >= CAP:
         _dropped += 1
         return -1

@@ -46,7 +46,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
    just after; the filter paths (4a, 4d) must slice through K3's form
    (b) only, with no launch of form (a) and no ``_normalize`` pass:
    a. odometry: ``run_odometry`` on sample1, 10 frames, bilateral filter on;
-      the trajectory error against ground truth, the poses against the JAX
+      each of its 27 levels captured or replayed as a CUDA graph
+      (``icp/level_graph.py``), replays counted in the launches as the
+      eager loop's; the trajectory error against ground truth, the poses against the JAX
       package's golden trajectory, a bitwise-identical second run; how far
       the trajectory moves when the divisions by a number are made as CUDA
       makes them for a CPU scalar (a product with the float32 reciprocal:
@@ -101,7 +103,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
       ``refine_with_loop_closures`` (closures by ``MsIcpParams.default()``,
       ``min_separation=16``): that test's gates (translation error below
       the odometry's, angle within 1.1x + 1e-3 deg, the revisit closed to
-      5e-3) and K1's launches (6 a pair, 70 a closure);
+      5e-3) and K1's launches (6 a pair, 70 a closure), levels replayed as
+      CUDA graphs (8b too);
    b. the command line, ``odometry tum <tree> --loop-closure`` over the
       palindrome as a TUM tree (filter on, the defaults), against
       ``run_odometry`` + ``refine_with_loop_closures`` called directly on
@@ -1214,6 +1217,14 @@ def since(before: dict) -> dict:
     return {n: now[n] - before[n] for n in before}
 
 
+def graphs_since(before: dict | None = None) -> dict:
+    """The image ICP levels' CUDA graphs captured and replayed
+    (``align3d_torch/icp/level_graph.py``) so far, or since ``before``."""
+    from align3d_torch.icp import level_graph
+
+    return {k: n - (before[k] if before else 0) for k, n in level_graph.counts().items()}
+
+
 def throughput_path(torch, real, mixed, counters) -> dict:
     """Phase 4d: ``odometry_step`` on the 64-pair real series, bilateral off
     and bucketed on, then the mixed series; the checks of the module
@@ -1768,13 +1779,13 @@ def palindrome_path(torch, dataset, counters) -> tuple[dict, list]:
     last = len(PALINDROME) - 1
     cheap = MsIcpParams.default().customize(lambda _, p: p.replace(max_iterations=CHEAP_ITERATIONS))
     kwargs = {"min_separation": last - 1, "max_translation": 0.5, "max_candidates": 4, "closure_weight": 20.0}
-    before = snapshot(counters)
+    before, graphs0 = snapshot(counters), graphs_since()
     t0 = time.perf_counter()
     raw = run_odometry(ds, DEVICE, icp_params=cheap)
     refined = refine_with_loop_closures(ds, raw, DEVICE, **kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = since(before)
+    launches, graphs = since(before), graphs_since(graphs0)
     closures = pg.propose_loop_closures(raw.trajectory, **{k: kwargs[k] for k in kwargs if k != "closure_weight"})
     # K1 once a GN iteration: the cheap odometry's 3 levels x 2 iterations a
     # pair, and MsIcpParams.default()'s 70 a closure; no filter, so no K2/K3.
@@ -1786,12 +1797,14 @@ def palindrome_path(torch, dataset, counters) -> tuple[dict, list]:
     poses = refined.trajectory.camera_to_world
     gap = float(torch.linalg.norm((poses[0].inverse() @ poses[last]).log()))
     out = {"frames": PALINDROME, "closures": closures.tolist(), "launches": launches, "launches_expected": want,
-           "ate_translation": {"odometry": raw_t, "refined": ref_t}, "ate_angle_deg": {"odometry": raw_a,
+           "level_graphs": graphs, "ate_translation": {"odometry": raw_t, "refined": ref_t}, "ate_angle_deg": {"odometry": raw_a,
                                                                                        "refined": ref_a},
            "revisit_gap": gap, "wall_s": wall}
     failures = []
     if launches != want:
         failures.append(f"8a: launches {launches}, expected {want}")
+    if DEVICE == "cuda" and graphs["replays"] <= 0:
+        failures.append(f"8a: no level replayed its CUDA graph: {graphs}")
     if not (ref_t < raw_t and ref_a < raw_a * 1.1 + 1e-3 and gap < 5e-3):
         failures.append(f"8a: the refined palindrome fails tests/test_loop_closure_e2e.py's gates: {out}")
     return out, failures
@@ -1816,13 +1829,13 @@ def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
     with tempfile.TemporaryDirectory() as tmp:
         tree = make_tum_tree(Path(tmp) / "tum", dataset, Trajectory, PALINDROME)
         saved = Path(tmp) / "refined.tum"
-        before = snapshot(counters)
+        before, graphs0 = snapshot(counters), graphs_since()
         t0 = time.perf_counter()
         rc = cli.main(["odometry", "tum", str(tree), "--loop-closure", "--save-trajectory", str(saved), "-q",
                        "--device", DEVICE])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = since(before)
+        launches, graphs = since(before), graphs_since(graphs0)
         text = saved.read_text()
         ds = TumRgbdDataset.load(str(tree))
         builder = RangeImageBuilder(bilateral_filter=BilateralFilter())
@@ -1842,7 +1855,7 @@ def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
     same_text = text == direct.trajectory.to_tum()
     gap = max_pose_gap(torch, from_cli, direct.trajectory.camera_to_world)
     out = {"exit_code": rc, "closures": len(closures), "launches": launches, "launches_expected": want,
-           "saved_tum_text_equal_direct": same_text, "saved_vs_direct_max_abs": gap, "wall_s": wall,
+           "level_graphs": graphs, "saved_tum_text_equal_direct": same_text, "saved_vs_direct_max_abs": gap, "wall_s": wall,
            "ate_translation": {"odometry": float(raw.metrics.translation),
                                "refined": float(direct.metrics.translation)}}
     failures = []
@@ -1850,6 +1863,8 @@ def loop_closure_cli(torch, dataset, counters) -> tuple[dict, list]:
         failures.append(f"8b: the command line exited {rc}")
     if launches != want:
         failures.append(f"8b: launches {launches}, expected {want}")
+    if DEVICE == "cuda" and graphs["replays"] <= 0:
+        failures.append(f"8b: no level replayed its CUDA graph: {graphs}")
     if not (same_text or gap <= CLI_DIRECT_ATOL):
         failures.append(f"8b: the command line's trajectory is {gap} from the direct call's")
     return out, failures
@@ -3101,8 +3116,9 @@ def check_band_prediction(torch, dataset, builder) -> tuple[dict, list]:
     ident = Transform.identity((b,), device=DEVICE)
     k3.predict_bases_centroid_batched = recording
     try:
-        ii.align_impl_pallas_v4_batched_packed(ident.rotation, ident.translation, *packed[:3], targets.intrinsics,
-                                               *packed[3:], IcpParams(max_iterations=10, engine="pallas_v4"))
+        # The eager loop: a graph's replay would call no Python, so record nothing.
+        ii._v4_loop(ident.rotation, ident.translation, *packed[:2], *packed[2], *packed[3:], targets.intrinsics,
+                    IcpParams(max_iterations=10, engine="pallas_v4"))
     finally:
         k3.predict_bases_centroid_batched = kernel
     hp = packed[0].shape[1] * k3.CHUNK
@@ -3380,14 +3396,16 @@ def main() -> int:
 
     # -- 4. the main path ----------------------------------------------------
     subset = SubsetDataset(dataset, range(FRAMES))
-    before = snapshot(("icp", "splat", "slice", "k11", "k12", "k13", "slice_a", "normalize"))
+    before, graphs0 = snapshot(("icp", "splat", "slice", "k11", "k12", "k13", "slice_a", "normalize")), graphs_since()
     first = run_odometry(subset, "cuda", range_builder=builder, icp_params=MsIcpParams.default())
-    launches = since(before)
+    launches, graphs = since(before), graphs_since(graphs0)
     unwanted = {k: launches.pop(k) for k in ("slice_a", "normalize")}
     print(f"main-path launches: {launches}; K3 form (a) launches {unwanted['slice_a']}, "
-          f"_normalize passes {unwanted['normalize']}")
+          f"_normalize passes {unwanted['normalize']}; level graphs {graphs} of {3 * (FRAMES - 1)} levels")
     if min(launches.values()) <= 0:
         return fail(f"a kernel of the main path never launched: {launches}")
+    if graphs["captures"] + graphs["replays"] != 3 * (FRAMES - 1) or graphs["replays"] <= 0:
+        return fail(f"the levels took their CUDA graphs otherwise than once a level, replayed after: {graphs}")
     if launches["k11"] != launches["icp"]:
         return fail(f"K11 launched otherwise than once a GN iteration: {launches}")
     if (launches["k12"], launches["k13"]) != (FRAMES, 2 * FRAMES):

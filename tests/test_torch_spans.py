@@ -290,3 +290,43 @@ def test_the_spans_tool_finds_launch_calls_inside_gn_step():
     assert found["icp_step_kernel"] == {"kernels": 1, "launch_calls": 1, "inside_gn_step": 1}
     assert found["icp_banded_kernel"] == {"kernels": 1, "launch_calls": 1, "inside_gn_step": 0}
     assert found["gn_step_spans"] == 2
+
+
+def test_the_spans_tool_reads_replays_where_no_gn_iter_is():
+    """The GN loop's host cost from ``gn.replay`` spans (a level's CUDA
+    graph) by level, a replay and an iteration, with the hit share; the
+    eager loop's ``gn.iter`` where it ran; one block's parents index it."""
+    from align3d_torch.tools import spans as tool
+
+    def level(name, start_us, length_us, lv, parent=-1):
+        s = _span(name, start_us, length_us, parent)
+        s.level = lv
+        return s
+
+    graphed = [_span("icp.align", 0, 100), level("icp.level", 0, 40, 2, 0), _span("gn.replay", 5, 30, 1),
+               level("icp.level", 40, 60, 0, 0), _span("gn.replay", 45, 40, 3)]
+    again = [level("icp.level", 0, 50, 0), _span("gn.replay", 0, 20, 0)]
+    params = MsIcpParams.default()
+    out = tool.gn_cost([graphed, again], params, {"captures": 1, "replays": 3})
+    assert "gn_iter_us" not in out and out["graph_hit_share"] == 0.75
+    assert out["gn_replay_us"] == {0: {"replays": 2, "mean": 30.0, "per_iteration": 1.5},
+                                   2: {"replays": 1, "mean": 30.0, "per_iteration": 1.0}}
+    eager = [_span("icp.level", 0, 100), _span("gn.iter", 0, 10, 0), _span("gn.iter", 10, 30, 0)]
+    out = tool.gn_cost([eager], params, {"captures": 0, "replays": 0})
+    assert out == {"gn_iter_us": {"mean": 20.0, "median": 20.0}, "graph_hit_share": None}
+
+
+def test_the_spans_tool_counts_graph_launches():
+    """A graph's kernels share its launch's correlation id: each counts as a
+    kernel, the graph launch as none of their launch calls."""
+    from align3d_torch.tools import spans as tool
+
+    events = [{"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 5.0, "args": {"correlation": 7}}
+              for name, ts in (("void icp_step_kernel<1>", 31.0), ("gn_update_kernel", 37.0),
+                               ("void icp_step_kernel<1>", 43.0), ("CatArrayBatchedCopy", 49.0))]
+    events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 12.0, "dur": 3.0,
+                   "args": {"correlation": 7}})
+    intervals, kernels = tool.chrome_device(events, 0)
+    found = tool.launches_in_steps(events, 0, kernels, [])
+    assert len(intervals) == 4 and found["graph_launches"] == 1 and found["gn_step_spans"] == 0
+    assert found["icp_step_kernel"] == {"kernels": 2, "launch_calls": 0, "inside_gn_step": 0}
