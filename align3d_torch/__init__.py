@@ -35,6 +35,7 @@ from align3d_torch.icp.params import IcpParams, MsIcpParams  # noqa: E402
 from align3d_torch.icp.image_icp import ImageIcp  # noqa: E402
 from align3d_torch.icp.multiscale import MultiscaleAlign  # noqa: E402
 from align3d_torch.icp.pcl_icp import Icp  # noqa: E402
+from align3d_torch.live import LiveOdometry  # noqa: E402
 
 __all__ = [
     "Transform",
@@ -50,4 +51,5 @@ __all__ = [
     "ImageIcp",
     "MultiscaleAlign",
     "Icp",
+    "LiveOdometry",
 ]

@@ -8,12 +8,13 @@ the device. :func:`run` captures a level's whole align once into a
 kernels, their arguments and their order are the eager loop's, so a replay
 gives the eager loop's bits.
 
-* **Cache.** Per device, the :data:`SIZE` levels used last (3 levels x 2
-  batch sizes, with room), each under :func:`key`: everything its captured
-  launches bake in, i.e. the eager function (the engine, and whether the
-  prepack is inside), the inputs' shapes and dtypes, and the constants the
-  caller passes (level size, intrinsics, every ``IcpParams`` field). Other
-  constants capture anew; nothing stale is replayed.
+* **Cache.** Per device, the :data:`SIZE` levels used last (3 levels at
+  each of 8 batch sizes, say the powers of two 1 to 64 and one more), each
+  under :func:`key`: everything its captured launches bake in, i.e. the
+  eager function (the engine, and whether the prepack is inside), the
+  inputs' shapes and dtypes, and the constants the caller passes (level
+  size, intrinsics, every ``IcpParams`` field). Other constants capture
+  anew; nothing stale is replayed.
 * **First call.** It runs the eager function on the caller's tensors and
   returns that result (so its arguments are checked and its kernels loaded
   before any capture), then captures the function on copies of those
@@ -46,7 +47,7 @@ from align3d_torch.ops import icp_fused
 from align3d_torch.utils import profiling
 
 #: Levels kept a device, the least recently used dropped first.
-SIZE = 8
+SIZE = 24
 
 
 class _Level(NamedTuple):

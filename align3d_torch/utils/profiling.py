@@ -40,7 +40,12 @@ there):
   pose gather (``parallel/collectives.py``, whose ``COLLECTIVES`` and
   ``BYTES`` count them);
 * ``batch.plan_wait``: ``filter_buckets``' read of the bucket plan, under
-  the stage ``filter`` (or ``batch.step``);
+  the stage ``filter`` (or ``batch.step``, or ``live.filter``);
+* ``live.step`` (``pairs``), root: ``LiveOdometry.step``
+  (``align3d_torch/live.py``); under it ``live.upload`` (the frames' copy
+  to the device), ``live.filter`` (``filter_buckets``), ``live.pyramid``
+  (``build_pyramids_batched``), the align's ``icp.align``, and
+  ``live.readback`` (the poses' copy to the host);
 
 and each :class:`StageTimer` stage (``filter``, ``pyramids``, ``align``,
 ``gather``, ``scan``, ``halo``) is a span of its own name. A span holds its
